@@ -5,7 +5,9 @@ Port of gtsfm_tpu/ops/pallas_kernels/attention.py. The kernel
 (``csrc/flash_attention.cu``) computes softmax(q k^T / sqrt(Dh) with masked
 keys set to -1e9) v without materializing the score matrix, and goes beyond
 the Pallas kernel's limits: Kq != Kkv and ragged lengths are allowed (key
-slots past Kkv carry weight 0).
+slots past Kkv carry weight 0). It runs on the tensor cores at float32
+accuracy (3xTF32 products), after a split pass into a workspace that the
+wrapper allocates.
 
 Layout: q is (BH, Kq, Dh); k, v are (BH, Kkv, Dh); kv_mask is (BH, Kkv) with
 0 = masked key. Returns (BH, Kq, Dh) float32.
@@ -36,14 +38,17 @@ def reference_attention(q, k, v, kv_mask):
 
 
 def _kernel():
+    """The built library's (launch, workspace_bytes) C functions."""
     lib = cuda_build.load("flash_attention")
-    fn = lib.gtsfm_flash_attention_f32
+    fn, ws = lib.gtsfm_flash_attention_f32, lib.gtsfm_flash_attention_workspace_bytes
     if fn.argtypes is None:
         ptr = ctypes.c_void_p
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
+        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
-    return fn
+        ws.argtypes = [ctypes.c_int] * 3
+        ws.restype = ctypes.c_longlong
+    return fn, ws
 
 
 def flash_attention(q, k, v, kv_mask):
@@ -85,11 +90,14 @@ def flash_attention(q, k, v, kv_mask):
     out = torch.empty((BH, Kq, Dh), dtype=torch.float32, device=q.device)
     if BH == 0 or Kq == 0:
         return out
+    launch, workspace_bytes = _kernel()
+    # scratch for the kernel's split pass: hi/lo (3xTF32) copies of k and v^T
+    workspace = torch.empty(workspace_bytes(BH, Kkv, Dh) // 4, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _kernel()(
+        err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_mask.data_ptr(), out.data_ptr(),
-            BH, Kq, Kkv, Dh, 1.0 / (Dh**0.5), stream,
+            workspace.data_ptr(), BH, Kq, Kkv, Dh, 1.0 / (Dh**0.5), stream,
         )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed (cudaError {err})")

@@ -3,8 +3,11 @@
 Each kernel source ``gtsfm_tpu_torch/csrc/<name>.cu`` exposes a plain C
 interface. At first use it is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library under ``build/gtsfm_tpu_torch/`` at the repository root (the
-file name carries a hash of the source, so an edited kernel rebuilds) and
-loaded with ``ctypes``. Nothing is compiled at import time: the CPU tests
+file name carries a hash of the source, of every ``csrc/*.cuh`` header and
+of the flags, so an edited kernel or header rebuilds) and loaded with
+``ctypes``. Kernels that use TMA reach the driver's
+``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint*`` at run time,
+so the build needs the toolkit's own headers only (no ``-lcuda``). Nothing is compiled at import time: the CPU tests
 import every module on machines with no ``nvcc``.
 """
 
@@ -34,21 +37,25 @@ _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def toolkit_binary(tool: str) -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump): on PATH or under
+    $CUDA_HOME/bin (default /usr/local/cuda)."""
+    found = shutil.which(tool)
     if found:
         return found
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(cuda_home, "bin", "nvcc")
+    cand = os.path.join(cuda_home, "bin", tool)
     if os.path.exists(cand):
         return cand
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the port's kernels")
+    raise RuntimeError(f"{tool} not found: the CUDA toolkit is needed to build the port's kernels")
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> Path:
@@ -59,7 +66,7 @@ def build(name: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+    cmd = [toolkit_binary("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

@@ -8,14 +8,15 @@ machine without JAX, without the repository's conftest:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
 
 Tolerance: 1e-4 absolute on attention outputs of order 1 (online softmax
-over kv tiles vs one-shot softmax, FMA contraction).
+over kv tiles vs one-shot softmax; the kernel's 3xTF32 products are of
+float32 grade, see test_torch_attention.py::test_kernel_precision_3xtf32).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from gtsfm_tpu_torch.ops import attention
+from gtsfm_tpu_torch.ops import attention, cuda_build
 
 CUDA_ATOL = 1e-4
 
@@ -27,10 +28,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(seed, BH, Kq, Kkv, Dh, masked, dev):
+def _inputs(seed, BH, Kq, Kkv, Dh, masked, dev, qk_scale=1.0):
     rng = np.random.default_rng(seed)
     arrays = [rng.standard_normal(shape).astype(np.float32)
               for shape in ((BH, Kq, Dh), (BH, Kkv, Dh), (BH, Kkv, Dh))]
+    arrays[0] *= qk_scale
+    arrays[1] *= qk_scale
     mask = np.ones((BH, Kkv), np.float32)
     if masked:
         mask[rng.random((BH, Kkv)) < 0.1] = 0.0
@@ -42,7 +45,11 @@ def _inputs(seed, BH, Kq, Kkv, Dh, masked, dev):
 @pytest.mark.parametrize(
     "BH,Kq,Kkv,Dh,masked",
     [(8, 1000, 1536, 64, True), (4, 77, 300, 32, False), (4, 200, 130, 128, True),
-     (16, 2048, 2048, 64, True)],
+     (16, 2048, 2048, 64, True),
+     # head dims off the main path at its length, and Kq below one query tile
+     (4, 2048, 2048, 32, True), (4, 2048, 2048, 128, True), (4, 5, 777, 64, True),
+     # ragged Kkv one past a kv tile (64 keys; 32 for Dh 128)
+     (4, 100, 65, 64, True), (4, 100, 129, 128, True), (4, 33, 65, 32, False)],
 )
 def test_flash_attention_matches_plain(cuda, BH, Kq, Kkv, Dh, masked):
     q, k, v, mask = _inputs(0, BH, Kq, Kkv, Dh, masked, cuda)
@@ -50,6 +57,20 @@ def test_flash_attention_matches_plain(cuda, BH, Kq, Kkv, Dh, masked):
     got = attention.masked_attention(q, k, v, mask)
     torch.cuda.synchronize()
     assert attention.flash_attention.launches == before + 1
+    want = attention.reference_attention(q, k, v, mask)
+    assert float((got - want).abs().max()) < CUDA_ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Dh", [32, 64, 128])
+def test_flash_attention_large_logits(cuda, Dh):
+    """q and k scaled so that the logits reach about +-30 (LightGlue's
+    range): the 3xTF32 products keep float32 accuracy there."""
+    q, k, v, mask = _inputs(3, 4, 1024, 1024, Dh, True, cuda, qk_scale=2.5)
+    logits = torch.einsum("bqd,bkd->bqk", q, k) / Dh**0.5
+    assert 20.0 < float(logits.abs().max()) < 60.0
+    got = attention.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
     want = attention.reference_attention(q, k, v, mask)
     assert float((got - want).abs().max()) < CUDA_ATOL
 
@@ -66,3 +87,18 @@ def test_flash_attention_refuses_what_it_does_not_take(cuda):
         attention.flash_attention(q.double(), k, v, mask)
     with pytest.raises(ValueError, match="contiguous"):
         attention.flash_attention(q.transpose(0, 1).contiguous().transpose(0, 1), k, v, mask)
+
+
+def test_build_key_covers_headers(tmp_path, monkeypatch):
+    """The library's file name changes with the kernel source and with every
+    csrc/*.cuh header, so an edited header never reuses a stale build."""
+    (tmp_path / "k.cu").write_text("// kernel")
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    first = cuda_build.library_path("k")
+    (tmp_path / "common.cuh").write_text("// header")
+    second = cuda_build.library_path("k")
+    (tmp_path / "common.cuh").write_text("// header, edited")
+    third = cuda_build.library_path("k")
+    (tmp_path / "k.cu").write_text("// kernel, edited")
+    assert len({first, second, third, cuda_build.library_path("k")}) == 4
+    assert first.parent == cuda_build.BUILD_DIR and first.name.startswith("libk-")

@@ -14,10 +14,18 @@ LightGlue d = 256, 4 heads, 9 layers -> 5-point RANSAC -> two-view BA)
 through its public entry points, profiles a warm second pass (device busy
 share, device time per scene-optimizer span; trace in
 build/chip_smoke_trace.json), cross-checks two of its pairs against the
-CPU, and checks two-view geometry on known poses. Any failure raises and the
-exit code is non-zero. The last two lines of standard output are a JSON line
-of per-kernel numbers and the result line {"ok": true, "device": {...}}.
-Without a card it exits non-zero and prints no result.
+CPU, and checks two-view geometry on known poses. Then it drives
+SceneOptimizer.run, the whole pipeline: on the deep preset's 12 images
+(run_deep, the main path whose attention launches the kernels line
+reports), on a 128-image survey with known geometry and synthetic features
+(back_end_known: cameras kept, rotation error after Sim(3), reprojection
+error, stage seconds, LM iterations/s, then a warm pass profiled through
+the port's profile_dir), and on 24 of those images once on the card and once
+on the CPU (back_end_cpu_check). Each phase logs its seconds. Any failure
+raises and the exit code is non-zero. The last two lines of standard output
+are a JSON line of per-kernel numbers and the result line
+{"ok": true, "device": {...}}. Without a card it exits non-zero and prints
+no result.
 """
 
 from __future__ import annotations
@@ -245,17 +253,34 @@ def profile_warm(slice_out):
     trace = os.path.join(ROOT, "build", "chip_smoke_trace.json")
     os.makedirs(os.path.dirname(trace), exist_ok=True)
     prof.export_chrome_trace(trace)
+    log(f"profile (warm): stage wall {json.dumps({k: round(v, 4) for k, v in warm.items()})}; "
+        f"profiled run {wall_us / 1e6:.3f} s")
+    out = {"warm_wall_s": warm, "profiled_wall_s": wall_us / 1e6}
+    out.update(trace_summary(trace, ("features/", "two_view/"), top=8))
+    for k, v in out.get("attention_kernels", {}).items():
+        log(f"  attention call: {v['ms']:9.2f} ms x{v['count']:<4d} {k}")
+    return out
+
+
+def trace_summary(trace: str, prefixes: tuple, top: int) -> dict:
+    """From a torch.profiler chrome trace: the device's busy share of the
+    traced window (first to last event), device ms per span whose name
+    starts with one of ``prefixes`` (kernels attributed by the host time of
+    their launch; an inner span takes them from an outer one), and the top
+    kernels by device time."""
     with open(trace) as fh:
         events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
     device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    out = {"warm_wall_s": warm, "profiled_wall_s": wall_us / 1e6}
     if not device:
         log("profile: the profiler recorded no device events; busy share not measured")
-        return out
+        return {}
+    window_us = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
     launch_ts = {e["args"]["correlation"]: e["ts"] for e in events
                  if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
-    spans = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
-             if e.get("cat") == "user_annotation" and e["name"].startswith(("features/", "two_view/"))]
+    # innermost first: a span nested in another is shorter
+    spans = sorted(((e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") == "user_annotation" and e["name"].startswith(prefixes)),
+                   key=lambda s: s[2] - s[1])
     span_cpu_ms = defaultdict(float)
     for name, a, b in spans:
         span_cpu_ms[name] += (b - a) / 1e3
@@ -267,25 +292,21 @@ def profile_warm(slice_out):
         kernel_ms[e["name"][:90]] += e["dur"] / 1e3
         kernel_n[e["name"][:90]] += 1
     busy = _busy_us((e["ts"], e["ts"] + e["dur"]) for e in device)
-    top = sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:8]
+    top_k = sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:top]
     # the attention call's kernels: its split pass and the attention kernel
     attention_ms = {k: {"ms": v, "count": kernel_n[k]} for k, v in kernel_ms.items()
                     if "flash_attention" in k or "split_rows" in k or "split_transpose_v" in k}
-    out.update(device_busy_share=busy / wall_us, device_ms=busy / 1e3,
-               span_device_ms=dict(span_dev_ms), span_wall_ms=dict(span_cpu_ms),
-               launches=len(device), attention_kernels=attention_ms,
-               top_kernels=[{"name": k, "ms": v, "count": kernel_n[k]} for k, v in top])
-    log(f"profile (warm): stage wall {json.dumps({k: round(v, 4) for k, v in warm.items()})}; "
-        f"profiled run {wall_us / 1e6:.3f} s, device busy {busy / 1e3:.1f} ms "
-        f"({busy / wall_us:.1%}), {len(device)} device ops")
+    log(f"  trace window {window_us / 1e6:.3f} s, device busy {busy / 1e3:.1f} ms "
+        f"({busy / window_us:.1%}), {len(device)} device ops")
     for name in sorted(span_cpu_ms):
         log(f"  span {name}: wall {span_cpu_ms[name]:.1f} ms, device {span_dev_ms[name]:.1f} ms")
     log(f"  outside spans: device {span_dev_ms['other']:.1f} ms")
-    for k, v in top:
+    for k, v in top_k:
         log(f"  kernel {v:9.2f} ms x{kernel_n[k]:<6d} {k}")
-    for k, v in attention_ms.items():
-        log(f"  attention call: {v['ms']:9.2f} ms x{v['count']:<4d} {k}")
-    return out
+    return dict(device_busy_share=busy / window_us, device_ms=busy / 1e3, window_s=window_us / 1e6,
+                span_device_ms=dict(span_dev_ms), span_wall_ms=dict(span_cpu_ms), launches=len(device),
+                attention_kernels=attention_ms,
+                top_kernels=[{"name": k, "ms": v, "count": kernel_n[k]} for k, v in top_k])
 
 
 def cross_check_cpu(slice_out, dev):
@@ -414,6 +435,300 @@ def known_geometry(dev, cfg):
                 median_dir_deg=float(np.median(dirn)), seconds=seconds)
 
 
+def metric_groups(result) -> dict:
+    """A ReconstructionResult's metrics as {group: {metric: value}}."""
+    return {g.name: {m.name: m.data for m in g.metrics} for g in result.metrics}
+
+
+def deep_config(output_root: str):
+    from gtsfm_tpu_torch.pipeline.config import PipelineConfig
+
+    cfg = PipelineConfig().apply_yaml(os.path.join(ROOT, "gtsfm_tpu_torch", "configs", "deep_front_end.yaml"))
+    cfg.frontend.max_keypoints = 2048
+    cfg.frontend.allow_random_weights = True  # seeded weights: no checkpoint in the repo
+    cfg.enable_cache = False
+    cfg.save_plots = False
+    cfg.output_root = output_root
+    return cfg
+
+
+def run_deep(dev):
+    """SceneOptimizer.run on the 12-image synthetic scene with the deep preset
+    (seeded weights), end to end with save_outputs: the port's main path."""
+    from gtsfm_tpu_torch.loader.synthetic import SyntheticAerialLoader
+    from gtsfm_tpu_torch.ops import attention
+    from gtsfm_tpu_torch.pipeline.scene_optimizer import ReconstructionResult, SceneOptimizer
+
+    out_root = os.path.join(ROOT, "build", "chip_smoke_run_deep")
+    opt = SceneOptimizer(deep_config(out_root), device=dev)
+    loader = SyntheticAerialLoader(num_images=12)
+    t0 = time.perf_counter()
+    attention.flash_attention.launches = 0
+    result = opt.run(loader, save_outputs=True)
+    torch.cuda.synchronize()
+    launches = attention.flash_attention.launches
+    seconds = time.perf_counter() - t0
+    groups = metric_groups(result)
+    reason = groups["total_summary_metrics"].get("degraded_reason", "complete")
+    files = [os.path.join(out_root, "result_metrics", f)
+             for f in ("total_summary_metrics.json", "summary.json", "gtsfm_metrics_report.html")]
+    log(f"run_deep: {seconds:.2f} s, attention kernel launches {launches}, ended: {reason}, "
+        f"verified pairs {groups['two_view_metrics']['num_verified_pairs']}, "
+        f"stage seconds {json.dumps({k: round(v, 4) for k, v in opt.stage_seconds.items()})}")
+    if not isinstance(result, ReconstructionResult):
+        raise AssertionError(f"run returned {type(result)}")
+    if launches < 4 * 9:
+        raise AssertionError(f"run ran {launches} attention launches on the card, expected >= 36")
+    missing = [f for f in files if not os.path.isfile(f)]
+    if missing:
+        raise AssertionError(f"run wrote no {missing}")
+    return dict(seconds=seconds, launches=launches, ended=reason, stage_seconds=opt.stage_seconds)
+
+
+def known_scene_features(loader, max_keypoints: int = 2048, keep: float = 0.7, density: float = 20.0,
+                         uv_noise_px: float = 0.5, desc_noise: float = 0.05, dim: int = 256, seed: int = 0):
+    """A stand-in for SceneOptimizer.compute_features on the synthetic survey
+    with known geometry. Terrain landmarks (``density`` per unit area of the
+    survey, on the loader's own height field) each get a fixed random
+    priority and a fixed random unit descriptor. Each image fills up to
+    ``keep`` of its ``max_keypoints`` slots with the visible landmarks of
+    highest priority (0.5 px noise on uv; Gaussian noise of ``desc_noise``
+    per component on the descriptor, renormalised) and the rest with clutter
+    (uniform uv, random descriptors), in shuffled order. Returns the
+    function and the landmark count."""
+    from gtsfm_tpu_torch.frontend.sift import SiftFeatures
+
+    rng = np.random.default_rng(seed)
+    W, H, f = loader._w, loader._h, loader._f
+    lo = loader._wti[:, :2].min(0) - loader._foot
+    hi = loader._wti[:, :2].max(0) + loader._foot
+    n_lm = int(density * np.prod(hi - lo))
+    xy = rng.uniform(lo, hi, (n_lm, 2))
+    X = np.concatenate([xy, loader._height(xy[:, 0], xy[:, 1])[:, None]], -1)
+    priority = rng.random(n_lm)
+    unit = lambda d: (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)  # noqa: E731
+    desc = unit(rng.normal(size=(n_lm, dim)))
+    n_keep = int(keep * max_keypoints)
+    feats, cals = [], []
+    for i in range(len(loader)):
+        R, c = loader.get_camera_pose(i)
+        pc = (X - c) @ R
+        uv = f * pc[:, :2] / np.maximum(pc[:, 2:], 1e-9) + [W / 2.0, H / 2.0]
+        vis = np.nonzero((pc[:, 2] > 0) & np.all((uv >= 0) & (uv < [W, H]), axis=1))[0]
+        vis = vis[np.argsort(-priority[vis], kind="stable")][:n_keep]
+        n_clutter = max_keypoints - len(vis)
+        kp = np.concatenate([uv[vis] + rng.normal(0, uv_noise_px, (len(vis), 2)),
+                             rng.uniform([0, 0], [W, H], (n_clutter, 2))])
+        d = unit(np.concatenate([desc[vis] + rng.normal(0, desc_noise, (len(vis), dim)),
+                                 rng.normal(size=(n_clutter, dim))]))
+        perm = rng.permutation(max_keypoints)
+        feats.append(SiftFeatures(uv=kp[perm].astype(np.float32), scale=np.zeros(max_keypoints, np.float32),
+                                  response=np.ones(max_keypoints, np.float32), descriptor=d[perm],
+                                  mask=np.ones(max_keypoints, np.float32)))
+        cals.append(loader.get_camera_intrinsics_full_res(i))
+    sizes = [(W, H)] * len(loader)
+    if max(W, H) > loader._max_resolution:
+        raise ValueError("known_scene_features assumes images at full resolution")
+
+    def compute_features(_loader):
+        return feats, np.stack(cals), sizes
+
+    return compute_features, n_lm
+
+
+def known_scene_config(output_root: str):
+    from gtsfm_tpu_torch.pipeline.config import PipelineConfig
+
+    cfg = PipelineConfig()
+    cfg.frontend.feature_type, cfg.frontend.matcher_type = "superpoint", "mutual_nn"
+    cfg.frontend.max_keypoints = 2048
+    cfg.enable_cache = False
+    cfg.save_plots = False
+    cfg.output_root = output_root
+    return cfg
+
+
+def rot_errors_deg(Ra: np.ndarray, Rb: np.ndarray) -> np.ndarray:
+    """Angle between rotations from the chordal distance, in float64:
+    ||Ra - Rb||_F = 2 sqrt(2) sin(angle / 2). (arccos of the trace loses
+    about 0.02 deg to float32 rounding near zero.)"""
+    chord = np.linalg.norm((np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64)).reshape(len(Ra), -1), axis=-1)
+    return np.degrees(2.0 * np.arcsin(np.clip(chord / np.sqrt(8.0), 0.0, 1.0)))
+
+
+def similarity_aligned(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """src (n, 3) moved onto dst by their least-squares similarity (the
+    port's Umeyama): global BA fixes one camera's pose, not the scale, which
+    its LM steps leave wherever they stop."""
+    from gtsfm_tpu_torch.geometry.alignment import umeyama_sim3
+
+    s, R, t = umeyama_sim3(src, dst)
+    return (s * torch.as_tensor(np.asarray(src, np.float32)) @ R.T + t).numpy()
+
+
+def back_end_known(dev, num_images: int = 128, rows: int = 8, max_keypoints: int = 2048, profile: bool = True):
+    """SceneOptimizer.run on the known-geometry survey (the scale of the
+    reference's south-building-128 CI scene): synthetic features in place of
+    compute_features, everything after them (mutual-NN matching, RANSAC,
+    two-view BA and every back-end stage) for real. Then a warm pass of the
+    same run under the port's profile_dir tracing."""
+    from gtsfm_tpu_torch.loader.synthetic import SyntheticAerialLoader
+    from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
+
+    out_root = os.path.join(ROOT, "build", "chip_smoke_back_end_known")
+    loader = SyntheticAerialLoader(num_images=num_images, rows=rows)
+    cfg = known_scene_config(out_root)
+    cfg.frontend.max_keypoints = max_keypoints
+    opt = SceneOptimizer(cfg, device=dev)
+    t0 = time.perf_counter()
+    opt.compute_features, n_landmarks = known_scene_features(loader, max_keypoints)
+    t_feat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result = opt.run(loader, save_outputs=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    stage_seconds = dict(opt.stage_seconds)
+
+    final = result.scene
+    groups = metric_groups(result)
+    n_cams = final.num_cameras()
+    T_pad, N_pad = final.num_tracks_padded, final.num_cameras_padded
+    rot = np.asarray(groups["ba_pose_error_metrics"]["rotation_angle_error_deg"])
+    reproj = float(final.mean_reprojection_error())
+    tracks = groups["data_association_metrics"]["num_tracks"]
+    meas = int(np.sum(groups["data_association_metrics"]["track_lengths"]))
+    ba_metrics = groups["bundle_adjustment_metrics"]
+    thresholds = cfg.multi_view.ba_reproj_thresholds_px
+    ba_stages = [dict(threshold=th, **{k: ba_metrics.get(f"stage{si}_{k}") for k in (
+        "iterations", "final_cost", "wall_lm_sec", "lm_iters_per_sec")}) for si, th in enumerate(thresholds)]
+    out = dict(
+        images=num_images, landmarks=n_landmarks, features_s=t_feat, run_s=seconds,
+        pairs=groups["retriever_metrics"]["num_retrieved_image_pairs"],
+        verified_pairs=groups["two_view_metrics"]["num_verified_pairs"],
+        edges_kept=groups["translation_averaging_metrics"]["num_total_edges"], tracks=tracks, measurements=meas,
+        tracks_after_ba=final.num_tracks(), measurements_after_ba=final.num_measurements(),
+        dense_schur_coupling_bytes=T_pad * N_pad * 3 * 6 * 4, cameras=n_cams,
+        rot_err_max_deg=float(rot.max()), rot_err_median_deg=float(np.median(rot)),
+        mean_reproj_px=reproj, stage_seconds=stage_seconds, ba_stages=ba_stages,
+    )
+    log(f"back_end_known: {num_images} images, {n_landmarks} landmarks, {out['pairs']} pairs, "
+        f"{out['verified_pairs']} verified, {out['edges_kept']} edges kept; {tracks} tracks, {meas} measurements "
+        f"(dense-Schur coupling (T*N, 3, 6) f32 at T={T_pad}, N={N_pad}: "
+        f"{out['dense_schur_coupling_bytes'] / 1e6:.1f} MB); final scene {n_cams} cameras, "
+        f"{out['tracks_after_ba']} tracks, mean reprojection {reproj:.4f} px; rotation error after Sim(3) "
+        f"max {out['rot_err_max_deg']:.4f} deg, median {out['rot_err_median_deg']:.4f} deg; run {seconds:.2f} s")
+    log(f"  stage seconds {json.dumps({k: round(v, 4) for k, v in stage_seconds.items()})}")
+    for si, s in enumerate(ba_stages):
+        log(f"  BA stage {si} (threshold {s['threshold']} px): {s['iterations']} LM iterations in "
+            f"{s['wall_lm_sec']:.3f} s ({s['lm_iters_per_sec']:.2f} it/s), final cost {s['final_cost']:.1f}")
+    if n_cams < 0.95 * num_images:
+        raise AssertionError(f"only {n_cams}/{num_images} cameras in the final scene")
+    if not (out["rot_err_max_deg"] <= 1.0 and out["rot_err_median_deg"] <= 0.1):
+        raise AssertionError(f"rotation errors too large: {out['rot_err_max_deg']}, {out['rot_err_median_deg']}")
+    if not reproj <= 1.0:
+        raise AssertionError(f"mean reprojection error {reproj} px > 1 px")
+    if not all(s["iterations"] and s["iterations"] > 0 for s in ba_stages):
+        raise AssertionError(f"BA stages did not report iterations: {ba_stages}")
+    if profile:
+        out["profile"] = profile_back_end(opt, loader)
+    return out
+
+
+def profile_back_end(opt, loader):
+    """A warm pass of the same run: wall seconds per stage, then one run
+    under the port's torch.profiler tracing (config.profile_dir) for the
+    device's busy share, device ms per two_view/* and back_end/* span and
+    the top kernels."""
+    opt.run(loader, save_outputs=False)
+    warm = dict(opt.stage_seconds)
+    opt_dir = os.path.join(ROOT, "build", "chip_smoke_back_end_profile")
+    opt.config.profile_dir = opt_dir
+    opt.run(loader, save_outputs=False)
+    opt.config.profile_dir = None
+    log(f"  warm stage seconds {json.dumps({k: round(v, 4) for k, v in warm.items()})}")
+    out = trace_summary(os.path.join(opt_dir, "trace.json"), ("two_view/", "back_end/"), top=12)
+    out.update(warm_stage_seconds=warm)
+    return out
+
+
+CPU_CHECK_ROT_DEG = 0.01  # final rotations, card vs CPU (chordal, float64)
+CPU_CHECK_CENTRE = 1e-4  # final centres after the similarity, of the scene's extent
+
+
+def back_end_cpu_check(dev, num_images: int = 24, rows: int = 8):
+    """The back end on the first images of the known-geometry survey, on the
+    card and on the CPU, from one set of features and one two-view result
+    (computed on the card). Kept edges identical (the VIEWGRAPH report's
+    pairs, the largest component's cameras and its edge count) and tracks
+    identical (count and every track's length, in order); final rotations
+    within CPU_CHECK_ROT_DEG and camera centres, after the similarity that
+    takes the card's onto the CPU's (BA leaves the scale free), within
+    CPU_CHECK_CENTRE of the scene's extent. Logs the same differences before
+    BA, the centres as they stand and the rotations by the metrics' own
+    float32 angle (atan2 of the relative rotation's sine and cosine)."""
+    from gtsfm_tpu_torch.geometry.alignment import rotation_errors_deg
+    from gtsfm_tpu_torch.loader.synthetic import SyntheticAerialLoader
+    from gtsfm_tpu_torch.ops import ransac
+    from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
+
+    loader = SyntheticAerialLoader(num_images=128, rows=rows)
+    loader._n = num_images  # the first images of the 128-image survey
+    compute_features, _ = known_scene_features(loader)
+    out_root = os.path.join(ROOT, "build", "chip_smoke_cpu_check")
+    card = SceneOptimizer(known_scene_config(os.path.join(out_root, "two_view")), device=dev)
+    feats, cals, _ = compute_features(loader)
+    two_view = card.run_two_view(feats, cals, card.generate_pairs(loader), return_stages=True)
+    results, edges, seconds = {}, {}, {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        opt = SceneOptimizer(known_scene_config(os.path.join(out_root, name)), device=d)
+        opt.compute_features = compute_features
+        res, match_idx, stages = two_view
+        moved = lambda r: ransac.TwoViewResult(*(t.to(d) for t in r))  # noqa: E731
+        opt.run_two_view = lambda *a, **k: (moved(res), match_idx.to(d), {t: moved(s) for t, s in stages.items()})
+        t0 = time.perf_counter()
+        results[name] = opt.run(loader, save_outputs=True)
+        seconds[name] = time.perf_counter() - t0
+        with open(os.path.join(out_root, name, "result_metrics", "two_view_report_VIEWGRAPH.json")) as fh:
+            edges[name] = [(r["i1"], r["i2"]) for r in json.load(fh)]
+    r_card, r_cpu = results["card"], results["cpu"]
+    g_card, g_cpu = metric_groups(r_card), metric_groups(r_cpu)
+    same_edges = edges["card"] == edges["cpu"] and all(
+        g_card[g][m] == g_cpu[g][m] for g, m in (("view_graph_metrics", "num_cameras_in_largest_cc"),
+                                                 ("translation_averaging_metrics", "num_total_edges")))
+    tracks = {k: g["data_association_metrics"] for k, g in (("card", g_card), ("cpu", g_cpu))}
+    same_tracks = tracks["card"]["num_tracks"] == tracks["cpu"]["num_tracks"] and np.array_equal(
+        tracks["card"]["track_lengths"], tracks["cpu"]["track_lengths"])
+    live = (r_card.scene.camera_mask.cpu().numpy() > 0) & (r_cpu.scene.camera_mask.cpu().numpy() > 0)
+    c_cpu = r_cpu.scene.wti.cpu().numpy()[live]
+    extent = float(np.linalg.norm(c_cpu.max(0) - c_cpu.min(0)))
+    diffs = {}
+    for stage, (Ra, Rb, ta, tb) in {
+        "pre_ba": (r_card.wRi_pre_ba, r_cpu.wRi_pre_ba, r_card.wti_pre_ba, r_cpu.wti_pre_ba),
+        "final": tuple(x.cpu().numpy() for x in (r_card.scene.wRi, r_cpu.scene.wRi,
+                                                 r_card.scene.wti, r_cpu.scene.wti)),
+    }.items():
+        Ra, Rb, ta, tb = Ra[live], Rb[live], ta[live], tb[live]
+        diffs[stage] = dict(
+            rot_max_deg=float(rot_errors_deg(Ra, Rb).max()),
+            rot_max_deg_atan2_f32=float(rotation_errors_deg(Ra, Rb).max()),
+            centre_max_rel=float(np.abs(ta - tb).max()) / extent,
+            centre_max_rel_similarity=float(np.abs(similarity_aligned(ta, tb) - tb).max()) / extent)
+    rot, centre = diffs["final"]["rot_max_deg"], diffs["final"]["centre_max_rel_similarity"]
+    log(f"back_end_cpu_check: {num_images} images, {len(edges['card'])} view-graph edges "
+        f"(identical: {same_edges}), {tracks['card']['num_tracks']} tracks (identical: {same_tracks}), "
+        f"{int(live.sum())} cameras; card vs CPU {json.dumps(diffs)} (centres relative to the extent "
+        f"{extent:.3f}; _similarity after the similarity that takes the card's onto the CPU's; limits: "
+        f"rot_max_deg {CPU_CHECK_ROT_DEG}, centre_max_rel_similarity {CPU_CHECK_CENTRE}); seconds card "
+        f"{seconds['card']:.2f}, CPU {seconds['cpu']:.2f}")
+    if not (same_edges and same_tracks):
+        raise AssertionError("the back end keeps other edges or tracks on the card than on the CPU")
+    if not (rot <= CPU_CHECK_ROT_DEG and centre <= CPU_CHECK_CENTRE):
+        raise AssertionError("the back end's poses on the card disagree with the CPU")
+    return dict(images=num_images, edges=len(edges["card"]), tracks=tracks["card"]["num_tracks"], diffs=diffs,
+                seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA card",
@@ -440,11 +755,23 @@ def main() -> int:
     log(f"  SASS of {os.path.basename(info['path'])}: {sass['HGMMA']} HGMMA (wgmma), "
         f"{sass['UTMALDG']} UTMALDG (TMA loads)")
 
-    slice_out = run_slice(dev)
-    profile = profile_warm(slice_out)
-    checks = check_attention_kernel(attention, dev, slice_out["path_shape"])
-    cross = cross_check_cpu(slice_out, dev)
-    geo = known_geometry(dev, slice_out["cfg"])
+    phase_s = {}
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t
+        log(f"phase {name}: {phase_s[name]:.2f} s")
+        return out
+
+    slice_out = phase("run_two_view", run_slice, dev)
+    profile = phase("profile_two_view", profile_warm, slice_out)
+    checks = phase("attention_checks", check_attention_kernel, attention, dev, slice_out["path_shape"])
+    cross = phase("lightglue_cpu_check", cross_check_cpu, slice_out, dev)
+    geo = phase("known_geometry", known_geometry, dev, slice_out["cfg"])
+    deep = phase("run_deep", run_deep, dev)
+    known = phase("back_end_known", back_end_known, dev)
+    cpu_check = phase("back_end_cpu_check", back_end_cpu_check, dev)
 
     path = checks["path"]
     kernels = [{
@@ -452,7 +779,10 @@ def main() -> int:
         "route": "cuda",
         "source": "gtsfm_tpu_torch/csrc/flash_attention.cu",
         "replaces": "gtsfm_tpu/ops/pallas_kernels/attention.py:61",
-        "launches": slice_out["launches"],
+        # the main path: SceneOptimizer.run (run_deep); run_two_view's own
+        # count is under launches_by_path
+        "launches": deep["launches"],
+        "launches_by_path": {"run": deep["launches"], "run_two_view": slice_out["launches"]},
         "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
         "ms": path["ms"],
         "plain_ms": path["plain_ms"],
@@ -468,7 +798,8 @@ def main() -> int:
     log(json.dumps({"slice": {k: slice_out[k] for k in ("pairs_count", "keypoints", "matches", "verified",
                                                           "stages", "launches")},
                     "profile": profile, "cross_check": cross, "known_geometry": geo,
-                    "checks": checks}))
+                    "checks": checks, "run_deep": deep, "back_end_known": known,
+                    "back_end_cpu_check": cpu_check, "phase_seconds": phase_s}, default=float))
     log(f"{smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

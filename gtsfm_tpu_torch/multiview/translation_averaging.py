@@ -1,0 +1,374 @@
+"""1dSFM translation averaging: batched MFAS outlier rejection + robust
+translation recovery.
+
+Port of gtsfm_tpu/multiview/translation_averaging.py (the reference's
+TranslationAveraging1DSFM, gtsfm/averaging/translation/averaging_1dsfm.py:
+68-433). Every projection direction runs the greedy minimum-feedback-arc-set
+ordering as one lane of a batch; per-direction outlier weights are averaged
+and edges with mean relative outlier weight >= 0.125 are dropped. The
+projection directions are drawn with numpy's ``default_rng`` exactly as the
+JAX package draws them, so both packages use the same directions.
+
+Translation recovery: robust alternating least squares on scaled-direction
+residuals (CG on the weighted graph Laplacian), then a damped Gauss-Newton
+polish on the chordal direction cost with Huber weights (sigma 0.01, k 1.345).
+
+Convention: the measurement for edge (i1, i2) is w_i2Ui1 = normalize(wti1 -
+wti2), the direction from camera i2 to camera i1 in world coordinates.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from gtsfm_tpu_torch import resolve_device
+
+MAX_PROJECTION_DIRECTIONS = 2000  # reference averaging_1dsfm.py:53
+OUTLIER_WEIGHT_THRESHOLD = 0.125  # reference averaging_1dsfm.py:51
+NOISE_SIGMA = 0.01  # reference averaging_1dsfm.py:46 (TranslationRecovery)
+HUBER_K = 1.345
+MAX_TRACK_MEASUREMENTS_PER_CAMERA = 12  # reference averaging_1dsfm.py:56-58
+MIN_TRACK_LEN_FOR_AVERAGING = 3
+
+_NOT_PORTED = "not ported to gtsfm_tpu_torch yet: ROADMAP queue 1, {}"
+
+
+def sample_projection_directions(
+    measurements: np.ndarray,  # (M, 3) unit directions
+    num_samples: int,
+    method: str = "uniform",
+    seed: int = 0,
+) -> np.ndarray:
+    """Projection directions for the MFAS sweeps (reference
+    averaging_1dsfm.py:105-130): "uniform" (isotropic), "measurements" (drawn
+    from the measurement set), "kde" (Gaussian KDE in spherical coordinates)
+    or "mixed" (half uniform, half measurements)."""
+    rng = np.random.default_rng(seed)
+    m = np.asarray(measurements, np.float64)
+
+    def uniform(k):
+        d = rng.normal(size=(k, 3))
+        return d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+    def from_measurements(k):
+        if m.shape[0] == 0:
+            return uniform(k)
+        k_eff = min(k, m.shape[0])
+        out = m[rng.choice(m.shape[0], k_eff, replace=False)]
+        if k_eff < k:
+            out = np.concatenate([out, uniform(k - k_eff)])
+        return out
+
+    if method == "uniform":
+        dirs = uniform(num_samples)
+    elif method == "measurements":
+        dirs = from_measurements(num_samples)
+    elif method == "kde":
+        if m.shape[0] < 4:
+            dirs = uniform(num_samples)
+        else:
+            from scipy import stats
+
+            sub = m[rng.choice(m.shape[0], min(m.shape[0], 2000), replace=False)]
+            theta = np.arccos(np.clip(sub[:, 2], -1.0, 1.0))
+            phi = np.arctan2(sub[:, 1], sub[:, 0])
+            try:
+                kde = stats.gaussian_kde(np.stack([theta, phi]))
+                th, ph = kde.resample(num_samples, seed=rng)
+                dirs = np.stack([np.sin(th) * np.cos(ph), np.sin(th) * np.sin(ph), np.cos(th)], -1)
+            except np.linalg.LinAlgError:  # degenerate (collinear) set
+                dirs = uniform(num_samples)
+    elif method == "mixed":
+        half = num_samples // 2
+        dirs = np.concatenate([uniform(num_samples - half), from_measurements(half)])
+    else:
+        raise ValueError(f"unknown projection sampling method {method}")
+    dirs = np.asarray(dirs, np.float32)
+    return dirs / np.maximum(np.linalg.norm(dirs, axis=-1, keepdims=True), 1e-12)
+
+
+def _mfas_chunk(proj: torch.Tensor, ea: torch.Tensor, eb: torch.Tensor, n: int) -> torch.Tensor:
+    """Greedy MFAS orderings for a chunk of projections (Dc, E) -> outlier
+    weight (Dc, E): |proj| where the ordering contradicts the edge."""
+    Dc, E = proj.shape
+    dev = proj.device
+    w_abs = torch.abs(proj)
+    pos_dir = proj >= 0
+    s_pos = torch.where(pos_dir, w_abs, torch.zeros_like(w_abs))
+    s_neg = w_abs - s_pos
+    # Dense per-projection adjacency A[d, i, j] = weight of directed edge i->j.
+    A = torch.zeros(Dc, n * n, dtype=proj.dtype, device=dev)
+    A.index_add_(1, ea * n + eb, s_pos)
+    A.index_add_(1, eb * n + ea, s_neg)
+    A = A.reshape(Dc, n, n)
+    net = A.sum(2) - A.sum(1)  # out - in per node
+    B = A - A.transpose(-1, -2)  # the net-tally update reads one row of B
+    remaining = torch.ones(Dc, n, dtype=torch.bool, device=dev)
+    pos = torch.zeros(Dc, n, dtype=torch.int64, device=dev)
+    rows = torch.arange(Dc, device=dev)
+    neg_inf = torch.tensor(-float("inf"), dtype=proj.dtype, device=dev)
+    for counter in range(n):
+        pick = torch.argmax(torch.where(remaining, net, neg_inf), dim=-1)
+        remaining[rows, pick] = False
+        pos[rows, pick] = counter
+        net = net + B[rows, pick]
+    u = torch.where(pos_dir, ea[None], eb[None])
+    v = torch.where(pos_dir, eb[None], ea[None])
+    pos_u = torch.gather(pos, 1, u)
+    pos_v = torch.gather(pos, 1, v)
+    return torch.where(pos_u > pos_v, w_abs, torch.zeros_like(w_abs))
+
+
+def mfas_outlier_weights(
+    edges: np.ndarray,  # (E, 2)
+    w_directions: np.ndarray,  # (E, 3) world-frame unit directions (w_i2Ui1)
+    num_nodes: int,
+    num_projections: int = 512,
+    seed: int = 0,
+    sampling_method: str = "uniform",
+    device: str | torch.device = "cuda",
+) -> np.ndarray:
+    """Mean relative outlier weight per edge over sampled projections."""
+    dev = resolve_device(device)
+    n = int(num_nodes)
+    dirs = sample_projection_directions(w_directions, num_projections, method=sampling_method, seed=seed)
+    ea = torch.as_tensor(np.asarray(edges[:, 1]), dtype=torch.int64, device=dev)  # node i2 ("from")
+    eb = torch.as_tensor(np.asarray(edges[:, 0]), dtype=torch.int64, device=dev)  # node i1 ("to")
+    proj = torch.as_tensor(dirs, device=dev) @ torch.as_tensor(np.asarray(w_directions, np.float32), device=dev).T
+    # Chunk the projections to bound the dense adjacency (A + B = 2 Dc n^2).
+    chunk = max(1, min(num_projections, int(2**28 // max(n * n, 1)) or 1))
+    outlier_w = torch.cat([_mfas_chunk(proj[s:s + chunk], ea, eb, n)
+                           for s in range(0, num_projections, chunk)])
+    denom = torch.clamp(torch.abs(proj).sum(0), min=1e-9)
+    return (outlier_w.sum(0) / denom).cpu().numpy()
+
+
+class TranslationResult(NamedTuple):
+    wti: np.ndarray  # (n, 3)
+    valid: np.ndarray  # (n,) bool — nodes constrained by at least one edge
+    inlier_edges: np.ndarray  # (E,) bool
+
+
+def _segment_sum(vals: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    out = torch.zeros((n,) + vals.shape[1:], dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, idx, vals)
+
+
+def _pcg(matvec, precond, b, x, iters: int = 40):
+    """Fixed-count preconditioned CG from x."""
+    rr = b - matvec(x)
+    z = precond(rr)
+    p = z
+    rz = torch.sum(rr * z)
+    for _ in range(iters):
+        Ap = matvec(p)
+        alpha = rz / torch.clamp(torch.sum(p * Ap), min=1e-20)
+        x = x + alpha * p
+        rr = rr - alpha * Ap
+        z = precond(rr)
+        rz_new = torch.sum(rr * z)
+        p = z + (rz_new / torch.clamp(rz, min=1e-20)) * p
+        rz = rz_new
+    return x
+
+
+def _recover_translations_gn(
+    edges_a: torch.Tensor,
+    edges_b: torch.Tensor,
+    u_meas: torch.Tensor,  # (E, 3) world unit dir from node a toward node b
+    w_edge: torch.Tensor,  # (E,) weights (inlier mask)
+    t0: torch.Tensor,  # (n, 3) init
+    num_nodes: int,
+    iters: int = 60,
+    gn_iters: int = 15,
+) -> torch.Tensor:
+    """Robust alternating least squares on scaled-direction residuals
+    (minimize sum_e w_e ||(t_b - t_a) - s_e u_e||^2 with s_e >= 0.05,
+    alternating the closed-form scale with a CG solve of the weighted graph
+    Laplacian; Huber IRLS after the first third; mean edge scale normalized
+    to 1), then a damped Gauss-Newton polish on the chordal direction cost."""
+    n = num_nodes
+    delta = 0.05
+    eye3 = torch.eye(3, dtype=u_meas.dtype, device=u_meas.device)
+    t = t0
+    for it in range(iters):
+        d_vec = t[edges_b] - t[edges_a]
+        s = torch.clamp(torch.sum(d_vec * u_meas, dim=-1), min=delta)
+        s_mean = torch.sum(s * w_edge) / torch.clamp(torch.sum(w_edge), min=1e-9)
+        s = s / torch.clamp(s_mean, min=1e-9)
+        t = t / torch.clamp(s_mean, min=1e-9)
+        target = s[:, None] * u_meas
+        e = torch.linalg.norm((t[edges_b] - t[edges_a]) - target, dim=-1)
+        w_rob = torch.clamp(0.25 / torch.clamp(e, min=1e-9), max=1.0)
+        if it < iters // 3:  # first sweeps: plain least squares
+            w_rob = torch.ones_like(w_rob)
+        w = w_rob * w_edge
+
+        def L_mv(x, w=w):
+            y = w[:, None] * (x[edges_b] - x[edges_a])
+            return _segment_sum(y, edges_b, n) - _segment_sum(y, edges_a, n) + 1e-6 * x
+
+        rhs = _segment_sum(w[:, None] * target, edges_b, n) - _segment_sum(w[:, None] * target, edges_a, n)
+        deg = _segment_sum(w, edges_a, n) + _segment_sum(w, edges_b, n) + 1e-6
+        x = _pcg(L_mv, lambda r, deg=deg: r / deg[:, None], rhs, t)
+        t = x - torch.mean(x, dim=0, keepdim=True)
+
+    for _ in range(gn_iters):
+        d_vec = t[edges_b] - t[edges_a]
+        dn = torch.clamp(torch.linalg.norm(d_vec, dim=-1, keepdim=True), min=1e-9)
+        d = d_vec / dn
+        r = (d - u_meas) / NOISE_SIGMA
+        e = torch.linalg.norm(r, dim=-1)
+        w_rob = torch.clamp(HUBER_K / torch.clamp(e, min=1e-9), max=1.0) * w_edge
+        P = (eye3 - d[:, :, None] * d[:, None, :]) / (dn[..., None] * NOISE_SIGMA)
+        JtJ_e = torch.einsum("eki,ekj->eij", P, P) * w_rob[:, None, None]
+        Jtr_e = torch.einsum("eki,ek->ei", P, r) * w_rob[:, None]
+        Hd = _segment_sum(JtJ_e, edges_a, n) + _segment_sum(JtJ_e, edges_b, n)
+        damp = 1e-3 * Hd * eye3 + 1e-8 * eye3
+        g = _segment_sum(Jtr_e, edges_b, n) - _segment_sum(Jtr_e, edges_a, n)
+
+        def H_mv(x, JtJ_e=JtJ_e, damp=damp):
+            y = torch.einsum("eij,ej->ei", JtJ_e, x[edges_b] - x[edges_a])
+            return (_segment_sum(y, edges_b, n) - _segment_sum(y, edges_a, n)
+                    + torch.einsum("nij,nj->ni", damp, x))
+
+        Minv = torch.linalg.inv(Hd + damp)
+        x = _pcg(H_mv, lambda r, Minv=Minv: torch.einsum("nij,nj->ni", Minv, r), -g, torch.zeros_like(g))
+        t = t + (x - torch.mean(x, dim=0, keepdim=True))
+    return t
+
+
+def select_tracks_for_averaging(
+    cam_idx: np.ndarray,  # (T, L) int, per-track measurement cameras
+    track_mask: np.ndarray,  # (T, L) validity
+    num_images: int,
+    meas_per_camera: int = MAX_TRACK_MEASUREMENTS_PER_CAMERA,
+) -> np.ndarray:
+    """Greedy cover (reference _select_tracks_for_averaging :273): pick long
+    tracks until every camera is covered by ~meas_per_camera track
+    measurements. Returns selected track indices."""
+    lengths = track_mask.sum(-1)
+    order = np.argsort(-lengths)
+    need = np.full(num_images, meas_per_camera, np.int64)
+    selected = []
+    for t in order:
+        if lengths[t] < MIN_TRACK_LEN_FOR_AVERAGING:
+            break
+        cams = cam_idx[t][track_mask[t] > 0]
+        if np.any(need[cams] > 0):
+            selected.append(t)
+            need[cams] -= 1
+        if not np.any(need > 0):
+            break
+    return np.asarray(selected, np.int64)
+
+
+def run_translation_averaging(
+    num_images: int,
+    edges: np.ndarray,  # (E, 2) (i1, i2)
+    i2Ui1: np.ndarray,  # (E, 3) unit translation dir of i1 in i2 frame
+    wRi: np.ndarray,  # (n, 3, 3) global rotations
+    num_projections: int = 512,
+    seed: int = 0,
+    sampling_method: str = "uniform",
+    track_cam_idx: np.ndarray | None = None,  # (T, L) optional track cams
+    track_rays: np.ndarray | None = None,  # (T, L, 3) unit rays in CAMERA frame
+    track_mask: np.ndarray | None = None,  # (T, L)
+    device: str | torch.device = "cuda",
+) -> TranslationResult:
+    """Full 1dSFM: lift to world, MFAS inliers, robust recovery. Selected
+    camera->landmark directions from tracks join the recovery with the
+    landmarks as extra unknowns (reference averaging_1dsfm.py)."""
+    dev = resolve_device(device)
+    n = num_images
+    wRi = np.asarray(wRi)
+    # Lift: w_i2Ui1 = wRi2 @ i2Ui1 (direction from camera i2 toward camera i1).
+    w_dirs = np.einsum("eij,ej->ei", wRi[edges[:, 1]], np.asarray(i2Ui1))
+    with record_function("back_end/translation_averaging/mfas"):
+        outlier_w = mfas_outlier_weights(edges, w_dirs, n, num_projections, seed,
+                                         sampling_method=sampling_method, device=dev)
+    inliers = outlier_w < OUTLIER_WEIGHT_THRESHOLD
+
+    # Init: spanning-tree walk over inlier edges with unit lengths.
+    rng = np.random.default_rng(seed + 1)
+    t0 = rng.normal(size=(n, 3)).astype(np.float32) * 0.01
+    adj: dict[int, list[tuple[int, np.ndarray]]] = {}
+    for k in np.nonzero(inliers)[0]:
+        a, b = int(edges[k, 1]), int(edges[k, 0])  # direction a -> b
+        d = w_dirs[k].astype(np.float32)
+        adj.setdefault(a, []).append((b, d))
+        adj.setdefault(b, []).append((a, -d))
+    visited = set()
+    for root in adj:
+        if root in visited:
+            continue
+        stack = [root]
+        visited.add(root)
+        while stack:
+            cur = stack.pop()
+            for nb, d in adj.get(cur, []):
+                if nb not in visited:
+                    t0[nb] = t0[cur] + d
+                    visited.add(nb)
+                    stack.append(nb)
+
+    # Optional camera->landmark measurements (selected tracks as extra nodes).
+    n_total = n
+    extra_a, extra_b, extra_u = [], [], []
+    if track_cam_idx is not None and track_rays is not None and track_mask is not None:
+        sel = select_tracks_for_averaging(track_cam_idx, track_mask, n)
+        for s_i, t_idx in enumerate(sel):
+            node = n + s_i
+            for l in np.nonzero(track_mask[t_idx] > 0)[0]:
+                cam = int(track_cam_idx[t_idx, l])
+                w_dir = wRi[cam] @ track_rays[t_idx, l]
+                nrm = np.linalg.norm(w_dir)
+                if nrm < 1e-9:
+                    continue
+                extra_a.append(cam)
+                extra_b.append(node)
+                extra_u.append((w_dir / nrm).astype(np.float32))
+        n_total = n + len(sel)
+        if extra_a:
+            t0_2 = np.zeros((n_total, 3), np.float32)
+            t0_2[:n] = t0
+            for a, b, u_ in zip(extra_a, extra_b, extra_u):
+                if np.allclose(t0_2[b], 0):  # one unit along the first ray
+                    t0_2[b] = t0_2[a] + u_
+            t0 = t0_2
+
+    def tensor(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+
+    ea = tensor(np.concatenate([edges[:, 1], np.asarray(extra_a, np.int64)]), torch.int64)
+    eb = tensor(np.concatenate([edges[:, 0], np.asarray(extra_b, np.int64)]), torch.int64)
+    u = tensor(np.concatenate([w_dirs.astype(np.float32)] + ([np.stack(extra_u)] if extra_u else [])))
+    ones = np.ones(len(extra_a), np.float32)
+    with record_function("back_end/translation_averaging/recovery"):
+        t = _recover_translations_gn(ea, eb, u, tensor(np.concatenate([inliers.astype(np.float32), ones])),
+                                     tensor(t0), num_nodes=n_total, iters=150)
+
+    # Second rejection pass: edges off by > 15 degrees after recovery go.
+    t_np = t.cpu().numpy()
+    d_vec = t_np[edges[:, 0]] - t_np[edges[:, 1]]
+    d_norm = d_vec / np.maximum(np.linalg.norm(d_vec, axis=-1, keepdims=True), 1e-9)
+    ang = np.degrees(np.arccos(np.clip(np.sum(d_norm * w_dirs, -1), -1, 1)))
+    inliers = inliers & (ang < 15.0)
+    valid = np.zeros(n, bool)
+    valid[edges[inliers, 0]] = True
+    valid[edges[inliers, 1]] = True
+    with record_function("back_end/translation_averaging/recovery"):
+        t = _recover_translations_gn(ea, eb, u, tensor(np.concatenate([inliers.astype(np.float32), ones])),
+                                     t, num_nodes=n_total, iters=20, gn_iters=15)
+    t = t.cpu().numpy()[:n]
+    t = t - t[valid].mean(0, keepdims=True) if valid.any() else t
+    return TranslationResult(wti=t, valid=valid, inlier_edges=inliers)
+
+
+def run_rig_translation_averaging(*args, **kwargs) -> TranslationResult:
+    """Rig variant of 1dSFM (reference rig_1dsfm.py:25)."""
+    raise NotImplementedError("rig translation averaging " + _NOT_PORTED.format("'BA extensions and rigs'"))

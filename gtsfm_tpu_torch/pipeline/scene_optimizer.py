@@ -1,39 +1,59 @@
-"""SceneOptimizer — the front end of the reconstruction pipeline.
+"""SceneOptimizer — end-to-end reconstruction orchestration.
 
-Port of the front-end stages of gtsfm_tpu/pipeline/scene_optimizer.py (the
-reference's SceneOptimizer, gtsfm/scene_optimizer.py:59, and the runner's
-front-end phase, runner/gtsfm_runner_base.py:275-413):
+Port of gtsfm_tpu/pipeline/scene_optimizer.py (the reference's SceneOptimizer
++ MultiViewOptimizer, gtsfm/scene_optimizer.py:59,
+gtsfm/multi_view_optimizer.py:29, and the runner loop,
+runner/gtsfm_runner_base.py:275-413). ``run(loader)`` goes through:
 
   1. retrieval -> pair list (exhaustive or sequential window);
   2. features (SuperPoint) for every image, batched per image shape and
      cached by content hash;
   3. batched matching (LightGlue, or mutual nearest neighbour) and batched
      RANSAC two-view estimation plus two-view BA, in fixed-size chunks of
-     pairs.
+     pairs (cached by the two-view cache);
+  4. cycle-consistency view-graph filter and largest connected component;
+  5. rotation averaging (certifiable staircase);
+  6. tracks (union-find) -> 1dSFM translation averaging;
+  7. robust triangulation;
+  8. multi-stage global BA with landmark filtering;
+  9. Sim(3) comparison with ground truth, ortho-axis alignment, COLMAP
+     export and the metrics JSON/HTML.
 
-It ends where the front end hands over to the back end: the verified
-two-view geometry (``TwoViewResult``) and the per-pair ``match_idx``. The
-back end (view-graph filtering, averaging, tracks, triangulation, global BA,
-export) and ``run()`` arrive with later slices (ROADMAP queue 1), as do the
-other detectors and matchers, the GRIC degeneracy gate and multi-GPU
-sharding. Runs on one device, ``"cuda"`` unless the caller asks otherwise.
+Runs on one device, ``"cuda"`` unless the caller asks otherwise. Other
+detectors and matchers, the GRIC gate, fisheye and rig loaders, pose priors,
+distributed BA, densification, plots, the process graph and the web viewer
+are later slices (ROADMAP queue 1) and raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
+import time
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from gtsfm_tpu_torch import resolve_device
+from gtsfm_tpu_torch.bundle import ba
+from gtsfm_tpu_torch.common import scene as scene_mod
 from gtsfm_tpu_torch.common.image import to_grayscale
+from gtsfm_tpu_torch.evaluation import pose_metrics
+from gtsfm_tpu_torch.evaluation.metrics import MetricsGroup, save_metrics_reports
+from gtsfm_tpu_torch.evaluation.report import generate_metrics_report_html
 from gtsfm_tpu_torch.frontend import sift
 from gtsfm_tpu_torch.frontend.cacher import FeatureCache
-from gtsfm_tpu_torch.geometry import cameras
+from gtsfm_tpu_torch.geometry import alignment, cameras
+from gtsfm_tpu_torch.geometry.ellipsoid import align_scene_to_ortho_axes
+from gtsfm_tpu_torch.io import colmap_io
 from gtsfm_tpu_torch.loader.base import LoaderBase
+from gtsfm_tpu_torch.multiview import data_association
+from gtsfm_tpu_torch.multiview import rotation_averaging as ra
+from gtsfm_tpu_torch.multiview import tracks as tracks_mod
+from gtsfm_tpu_torch.multiview import translation_averaging as ta
+from gtsfm_tpu_torch.multiview import viewgraph
 from gtsfm_tpu_torch.ops import matching, ransac
 from gtsfm_tpu_torch.pipeline.config import PipelineConfig
 from gtsfm_tpu_torch.retriever import exhaustive_pairs, sequential_pairs
@@ -43,12 +63,22 @@ logger = logging.getLogger("gtsfm_tpu_torch")
 _NOT_PORTED = "not ported to gtsfm_tpu_torch yet: ROADMAP queue 1, {}"
 
 
+@dataclasses.dataclass
+class ReconstructionResult:
+    scene: scene_mod.SceneData
+    metrics: list[MetricsGroup]
+    wRi_pre_ba: np.ndarray | None = None
+    wti_pre_ba: np.ndarray | None = None
+
+
 class SceneOptimizer:
     def __init__(self, config: PipelineConfig | None = None,
                  device: str | torch.device = "cuda"):
         self.config = config or PipelineConfig()
         self.device = resolve_device(device)
         self._matcher = None
+        # Wall seconds per stage of the last run() (device-synchronized).
+        self.stage_seconds: dict[str, float] = {}
 
     # ------------------------------------------------------------ stages
 
@@ -250,6 +280,362 @@ class SceneOptimizer:
         if return_stages:
             return res, idx, stages
         return res, idx
+
+    # ------------------------------------------------------------ back end
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _stage(self, name: str, t_start: float) -> float:
+        """Record stage wall seconds (device-synchronized); returns now."""
+        self._sync()
+        now = time.perf_counter()
+        self.stage_seconds[name] = now - t_start
+        return now
+
+    def _check_ported(self, loader: LoaderBase, save_outputs: bool) -> None:
+        cfg = self.config
+        if hasattr(loader, "get_fisheye_calibration"):
+            raise NotImplementedError("fisheye loaders " + _NOT_PORTED.format("'BA extensions and rigs'"))
+        if hasattr(loader, "get_relative_pose_priors") or hasattr(loader, "rig_from_image"):
+            raise NotImplementedError("relative-pose priors and rigs " + _NOT_PORTED.format("'BA extensions and rigs'"))
+        if cfg.multi_view.distributed_ba == "on":
+            raise NotImplementedError("distributed_ba='on' " + _NOT_PORTED.format("'multi-GPU'"))
+        if cfg.densify.enabled:
+            raise NotImplementedError("densify " + _NOT_PORTED.format("'densify'"))
+        if save_outputs and cfg.save_plots:
+            raise NotImplementedError("save_plots " + _NOT_PORTED.format("'ui/ and visualization/'"))
+
+    def _save_reports(self, metrics, frontend_reports) -> None:
+        out = os.path.join(self.config.output_root, "result_metrics")
+        os.makedirs(out, exist_ok=True)
+        save_metrics_reports(metrics, out)
+        for tag, reps in frontend_reports.items():
+            pose_metrics.save_two_view_reports(reps, os.path.join(out, f"two_view_report_{tag}.json"))
+        generate_metrics_report_html(metrics, os.path.join(out, "gtsfm_metrics_report.html"))
+
+    def _empty_result(self, loader, cals, metrics, frontend_reports, save_outputs, reason: str, t0: float,
+                      wRi: np.ndarray | None = None,
+                      camera_mask: np.ndarray | None = None) -> ReconstructionResult:
+        """Graceful degradation: an empty stage still produces a result, the
+        metrics JSON/HTML and the reports (the reference's keep-running-and-
+        report semantics, verifier_base.py:56, bundle_adjustment.py:319-324)."""
+        n = len(loader)
+        if wRi is None:
+            wRi = np.tile(np.eye(3, dtype=np.float32), (n, 1, 1))
+        if camera_mask is None:
+            camera_mask = np.zeros(n, np.float32)
+        sc = scene_mod.make_scene(wRi, np.zeros((n, 3), np.float32), cals, [], camera_mask=camera_mask,
+                                  device=self.device)
+        g = MetricsGroup("total_summary_metrics")
+        g.add("total_runtime_sec", time.time() - t0)
+        g.add("degraded_reason", reason)
+        metrics = list(metrics) + [g]
+        if save_outputs:
+            self._save_reports(metrics, frontend_reports)
+        return ReconstructionResult(scene=sc, metrics=metrics)
+
+    def run(self, loader: LoaderBase, save_outputs: bool = True) -> ReconstructionResult:
+        """Images to a COLMAP model and metrics. With ``profile_dir`` set, the
+        run is traced by torch.profiler into profile_dir/trace.json."""
+        if not self.config.profile_dir:
+            return self._run_impl(loader, save_outputs)
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            result = self._run_impl(loader, save_outputs)
+        os.makedirs(self.config.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(self.config.profile_dir, "trace.json"))
+        return result
+
+    def _run_impl(self, loader: LoaderBase, save_outputs: bool = True) -> ReconstructionResult:
+        cfg = self.config
+        self._check_ported(loader, save_outputs)
+        dev = self.device
+        self.stage_seconds = {}
+        t0 = time.time()
+        t_s = time.perf_counter()
+        metrics: list[MetricsGroup] = []
+        n = len(loader)
+
+        pairs = self.generate_pairs(loader)
+        g = MetricsGroup("retriever_metrics")
+        g.add("num_input_images", n)
+        g.add("num_retrieved_image_pairs", len(pairs))
+        metrics.append(g)
+        logger.info("pairs: %d", len(pairs))
+        t_s = self._stage("generate_pairs", t_s)
+
+        feats, cals, sizes = self.compute_features(loader)
+        t_feat = time.time()
+        g = MetricsGroup("correspondence_metrics")
+        g.add("num_keypoints_per_image", np.asarray([float(f.mask.sum()) for f in feats]))
+        g.add("duration_sec", t_feat - t0)
+        metrics.append(g)
+        t_s = self._stage("compute_features", t_s)
+
+        # Two-view cache (reference TwoViewEstimatorCacher,
+        # two_view_estimator_cacher.py:36): key from the first keypoints + config.
+        tv_cache = FeatureCache(os.path.join(cfg.cache_dir, "two_view"), cfg.enable_cache)
+        key_payload = np.concatenate([np.asarray(feats[0].uv[:10]).ravel(), np.asarray(feats[-1].uv[:10]).ravel()])
+        tv_key = tv_cache.key(
+            key_payload,
+            f"{len(pairs)}-{cfg.two_view.num_hypotheses}-"
+            f"{cfg.two_view.estimation_threshold_px}-{cfg.two_view.ba_enabled}-{cfg.seed}-"
+            f"{cfg.frontend.feature_type}-{cfg.frontend.max_keypoints}-"
+            f"{cfg.frontend.matcher_type}-{cfg.frontend.ratio_test}",
+        )
+        hit = tv_cache.load(tv_key)
+        if hit is not None:
+            res = ransac.TwoViewResult(*(torch.as_tensor(hit[k], device=dev) for k in ransac.TwoViewResult._fields))
+            match_idx = hit["match_idx"]
+            tv_stages = {"POST_ISP": res}  # earlier stages are not cached
+            logger.info("two-view results loaded from cache")
+        else:
+            res, match_idx, tv_stages = self.run_two_view(feats, cals, pairs, return_stages=True)
+            match_idx = match_idx.cpu().numpy()
+            tv_cache.save(tv_key, dict(**{k: v.cpu().numpy() for k, v in res._asdict().items()},
+                                       match_idx=match_idx))
+        t_2view = time.time()
+        t_s = self._stage("run_two_view", t_s)
+        res_np = ransac.TwoViewResult(*(t.cpu().numpy() for t in res))
+        ok = res_np.success.astype(bool)
+        g = MetricsGroup("two_view_metrics")
+        g.add("num_verified_pairs", int(ok.sum()))
+        g.add("inlier_ratios", res_np.inlier_ratio)
+        g.add("num_inliers", res_np.num_inliers)
+        g.add("duration_sec", t_2view - t_feat)
+        # Per-pair reports vs GT (reference TwoViewEstimationReport + the
+        # pose_angular_error_thresh < 5 deg success criterion).
+        wRi_gt, wti_gt, gt_valid = loader.get_all_poses()
+        num_matches = np.sum(match_idx >= 0, axis=-1)
+        if gt_valid.sum() >= 2:
+            reports = pose_metrics.two_view_reports_from_results(pairs, res_np, num_matches, wRi_gt, wti_gt,
+                                                                 gt_valid)
+            r_errs = np.asarray([r.R_error_deg for r in reports.values() if r.R_error_deg is not None])
+            u_errs = np.asarray([r.U_error_deg for r in reports.values() if r.U_error_deg is not None])
+            if r_errs.size:
+                g.add("rotation_angular_errors_deg", r_errs)
+                g.add("translation_angular_errors_deg", u_errs)
+                g.add("pose_success_rate_5deg", float((np.maximum(r_errs, u_errs) < 5.0).mean()))
+                for k, v in pose_metrics.pose_auc(r_errs).items():
+                    g.add(f"rotation_{k}", v)
+        metrics.append(g)
+        logger.info("two-view: %d/%d verified", int(ok.sum()), len(pairs))
+
+        # Per-pair front-end reports at every pipeline point (reference
+        # save_full_frontend_metrics: PRE_BA/POST_BA/POST_ISP + VIEWGRAPH).
+        frontend_reports = {
+            tag: pose_metrics.two_view_reports_from_results(pairs, st, num_matches, wRi_gt, wti_gt, gt_valid)
+            for tag, st in tv_stages.items()
+        }
+        if gt_valid.sum() >= 2 and "POST_ISP" in frontend_reports:
+            pose_metrics.add_gt_correspondence_metrics(
+                frontend_reports["POST_ISP"], pairs, [np.asarray(f.uv) for f in feats], match_idx,
+                res_np.inlier_mask, cals, wRi_gt, wti_gt, gt_valid,
+                dist_threshold_px=cfg.two_view.estimation_threshold_px, gt_mesh=loader.get_gt_scene_mesh(),
+            )
+            gt_ratios = [r.inlier_ratio_gt_model for r in frontend_reports["POST_ISP"].values()
+                         if r.inlier_ratio_gt_model is not None]
+            if gt_ratios:
+                metrics[-1].add("inlier_ratio_wrt_gt_model", np.asarray(gt_ratios, np.float64))
+
+        edges = np.asarray([p for k, p in enumerate(pairs) if ok[k]], np.int64).reshape(-1, 2)
+        i2Ri1, i2Ui1 = res_np.i2Ri1[ok], res_np.i2Ui1[ok]
+        with record_function("back_end/viewgraph"):
+            logger.info("view-graph cycle filtering: %d edges", len(edges))
+            keep, vg_info = viewgraph.filter_cycle_consistent_edges(
+                edges, i2Ri1, cfg.multi_view.cycle_error_threshold_deg, device=dev)
+            g = MetricsGroup("view_graph_metrics")
+            g.add("num_input_edges", len(edges))
+            g.add("num_retained_edges", int(keep.sum()))
+            g.add("num_triplets", vg_info.get("num_triplets", 0))
+            metrics.append(g)
+            kept_pairs = {tuple(e) for e in edges[keep].tolist()}
+            frontend_reports["VIEWGRAPH"] = {pr: rep for pr, rep in frontend_reports["POST_ISP"].items()
+                                             if pr in kept_pairs}
+            edges, i2Ri1, i2Ui1 = edges[keep], i2Ri1[keep], i2Ui1[keep]
+            if len(edges) == 0:
+                logger.warning("view graph empty after cycle filtering: emitting an empty result with metrics")
+                self._stage("back_end/viewgraph", t_s)
+                return self._empty_result(loader, cals, metrics, frontend_reports, save_outputs,
+                                          reason="empty_view_graph", t0=t0)
+            # Largest connected component before rotation averaging (reference
+            # multi_view_optimizer.py:123 -> utils/graph.py:42).
+            num_edges_pre_cc = len(edges)
+            edges, (i2Ri1, i2Ui1), cc_mask = viewgraph.prune_to_largest_connected_component(n, edges, i2Ri1, i2Ui1)
+            if len(edges) < num_edges_pre_cc:
+                logger.info("largest-CC pruning: kept %d/%d cameras, %d/%d edges",
+                            int(cc_mask.sum()), n, len(edges), num_edges_pre_cc)
+            metrics[-1].add("num_cameras_in_largest_cc", int(cc_mask.sum()))
+            camera_cc_mask = cc_mask.astype(np.float32)
+            kept_edge_set = {tuple(e) for e in edges.tolist()}
+
+            # GT precision/recall of the kept edges (reference
+            # view_graph_estimator_base.py:238-249).
+            post_isp = frontend_reports.get("POST_ISP", {})
+            if post_isp and gt_valid.sum() >= 2:
+                g = metrics[-1]
+                for name, attr in (("R", "R_error_deg"), ("U", "U_error_deg")):
+                    inl = [getattr(r, attr) for pr, r in post_isp.items() if pr in kept_edge_set]
+                    out = [getattr(r, attr) for pr, r in post_isp.items() if pr not in kept_edge_set]
+                    prec, rec = pose_metrics.get_precision_recall_from_errors(inl, out, 5.0)
+                    g.add(f"{name}_precision", prec)
+                    g.add(f"{name}_recall", rec)
+                    live_in = [e for e in inl if e is not None]
+                    live_out = [e for e in out if e is not None]
+                    if live_in:
+                        g.add(f"inlier_{name}_angular_errors_deg", np.asarray(live_in, np.float64))
+                    if live_out:
+                        g.add(f"outlier_{name}_angular_errors_deg", np.asarray(live_out, np.float64))
+        t_s = self._stage("back_end/viewgraph", t_s)
+
+        with record_function("back_end/rotation_averaging"):
+            logger.info("rotation averaging: %d cams, %d edges", n, len(edges))
+            wRi_est, ra_info = ra.run_rotation_averaging(n, edges, i2Ri1, device=dev)
+            g = MetricsGroup("rotation_averaging_metrics")
+            for k, v in ra_info.items():
+                g.add(k, v)
+            g.add("relative_rotation_consistency_deg", ra.relative_rotation_errors_deg(wRi_est, edges, i2Ri1))
+            metrics.append(g)
+        t_s = self._stage("back_end/rotation_averaging", t_s)
+
+        # Tracks from the verified inlier matches of kept edges, formed before
+        # translation averaging (reference multi_view_optimizer.py:130).
+        with record_function("back_end/tracks"):
+            match_dict = {}
+            pair_ok = [p for k, p in enumerate(pairs) if ok[k]]
+            inlier_masks = res_np.inlier_mask[ok]
+            match_idx_ok = match_idx[ok]
+            for kk, (a, b) in enumerate(pair_ok):
+                if (a, b) not in kept_edge_set:
+                    continue
+                ia = np.nonzero(inlier_masks[kk] > 0)[0]
+                match_dict[(a, b)] = np.stack([ia, match_idx_ok[kk][ia]], -1)
+            trks = tracks_mod.tracks_from_matches(n, feats[0].uv.shape[0], match_dict,
+                                                  min_track_len=cfg.multi_view.min_track_len)
+            kp = np.stack([np.asarray(f.uv) for f in feats])
+            meas_tracks = tracks_mod.tracks_to_measurements(trks, kp)
+            g = MetricsGroup("data_association_metrics")
+            g.add("num_tracks", len(trks))
+            g.add("track_lengths", np.asarray([len(t) for t in trks], np.float64))
+            metrics.append(g)
+            if not trks:
+                logger.warning("no tracks formed: emitting an empty result with metrics")
+                self._stage("back_end/tracks", t_s)
+                return self._empty_result(loader, cals, metrics, frontend_reports, save_outputs, reason="no_tracks",
+                                          t0=t0, wRi=wRi_est, camera_mask=camera_cc_mask)
+            # Padded per-track arrays + camera-frame unit rays for 1dSFM.
+            lengths = np.asarray([len(t) for t in trks])
+            T_n, max_len = len(trks), int(lengths.max())
+            slot_mask = np.arange(max_len)[None, :] < lengths[:, None]
+            tr_cam = np.zeros((T_n, max_len), np.int64)
+            tr_uv = np.zeros((T_n, max_len, 2), np.float32)
+            tr_cam[slot_mask] = [i for t in trks for i, _ in t]
+            tr_uv[slot_mask] = kp[tr_cam[slot_mask], [k for t in trks for _, k in t]]
+            tr_mask = slot_mask.astype(np.float32)
+            xn = cameras.bundler_calibrate(torch.as_tensor(cals[tr_cam], device=dev),
+                                           torch.as_tensor(tr_uv, device=dev)).cpu().numpy()
+            rays = np.concatenate([xn, np.ones((T_n, max_len, 1), np.float32)], -1)
+            rays /= np.linalg.norm(rays, axis=-1, keepdims=True)
+        t_s = self._stage("back_end/tracks", t_s)
+
+        with record_function("back_end/translation_averaging"):
+            logger.info("translation averaging: %d edges, %d tracks", len(edges), T_n)
+            res_t = ta.run_translation_averaging(
+                n, edges, i2Ui1, wRi_est, num_projections=cfg.multi_view.num_mfas_projections, seed=cfg.seed,
+                sampling_method=cfg.multi_view.mfas_sampling_method, track_cam_idx=tr_cam, track_rays=rays,
+                track_mask=tr_mask, device=dev)
+            wti_est = res_t.wti.astype(np.float32)
+            g = MetricsGroup("translation_averaging_metrics")
+            g.add("num_inlier_edges", int(res_t.inlier_edges.sum()))
+            g.add("num_total_edges", len(edges))
+            metrics.append(g)
+        t_s = self._stage("back_end/translation_averaging", t_s)
+
+        # Triangulation with the averaged poses (RANSAC over measurement
+        # pairs + exit codes, reference point3d_initializer semantics).
+        with record_function("back_end/triangulation"):
+            sc = scene_mod.make_scene(wRi_est, wti_est, cals, meas_tracks, camera_mask=camera_cc_mask, device=dev)
+            pad_rows = sc.num_tracks_padded - T_n
+            logger.info("triangulating %d tracks (padded %d)", T_n, sc.num_tracks_padded)
+            gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+            tri = data_association.triangulate_tracks_robust(
+                sc.wRi, sc.wti, sc.cal,
+                torch.as_tensor(np.pad(tr_cam, ((0, pad_rows), (0, 0))), device=dev),
+                torch.as_tensor(np.pad(tr_uv, ((0, pad_rows), (0, 0), (0, 0))), device=dev),
+                torch.as_tensor(np.pad(tr_mask, ((0, pad_rows), (0, 0))), device=dev),
+                reproj_thresh_px=cfg.multi_view.triangulation_reproj_thresh_px, generator=gen)
+            sc = sc.replace(points=tri.points)
+            # The JAX package files the exit codes under the group appended
+            # last (translation_averaging_metrics); kept so the metrics match.
+            g = metrics[-1]
+            for name, count in data_association.exit_code_histogram(tri.exit_codes).items():
+                g.add(f"exit_{name}", count)
+            sc = sc.filter_landmarks(cfg.multi_view.triangulation_reproj_thresh_px)
+            wRi_pre_ba, wti_pre_ba = sc.wRi.cpu().numpy(), sc.wti.cpu().numpy()
+        t_s = self._stage("back_end/triangulation", t_s)
+
+        with record_function("back_end/ba"):
+            bucket_l = ba.auto_bucket_l(sc)
+            if bucket_l > 64:
+                # The JAX package caps its bucketed layout at 64 slots: the
+                # tail measurements of longer tracks leave the solve.
+                logger.info("capping BA bucket_l %d -> 64", bucket_l)
+                bucket_l = 64
+            ba_cfg = ba.BAConfig(max_iterations=cfg.multi_view.ba_max_iterations,
+                                 optimize_calibration=cfg.multi_view.optimize_calibration, bucket_l=bucket_l)
+            logger.info("global BA: %d cams, %d tracks, %d meas (bucket_l %d)",
+                        sc.num_cameras(), sc.num_tracks(), sc.num_measurements(), bucket_l)
+            final, ba_stats = ba.run_ba_with_filtering(sc, cfg.multi_view.ba_reproj_thresholds_px, ba_cfg)
+            t_ba = time.time()
+            err, _ = final.reprojection_errors()
+            live = final.meas_mask > 0
+            g = MetricsGroup("bundle_adjustment_metrics")
+            g.add("number_cameras", final.num_cameras())
+            g.add("number_tracks_filtered", final.num_tracks())
+            g.add("number_measurements", int(live.sum()))
+            g.add("reprojection_errors_px", err[live].cpu().numpy())
+            for si, s in enumerate(ba_stats):
+                g.add(f"stage{si}_final_cost", s["final_cost"])
+                g.add(f"stage{si}_iterations", s["iterations"])
+                for key in ("wall_prep_sec", "wall_lm_sec", "wall_filter_sec", "lm_iters_per_sec"):
+                    g.add(f"stage{si}_{key}", s[key])
+            g.add("duration_sec", t_ba - t_2view)
+            metrics.append(g)
+        t_s = self._stage("back_end/ba", t_s)
+
+        # GT comparison if the loader has poses.
+        est_valid = (gt_valid > 0) & (final.camera_mask.cpu().numpy() > 0)
+        if est_valid.sum() >= 3:
+            (Rb, tb), _ = alignment.align_poses_sim3(final.wRi, final.wti, wRi_gt, wti_gt, valid=est_valid)
+            rot_errs = alignment.rotation_errors_deg(Rb, wRi_gt).cpu().numpy()[est_valid]
+            tr_errs = np.linalg.norm(tb.cpu().numpy() - wti_gt, axis=-1)[est_valid]
+            g = MetricsGroup("ba_pose_error_metrics")
+            g.add("rotation_angle_error_deg", rot_errs)
+            g.add("translation_error_distance", tr_errs)
+            metrics.append(g)
+            logger.info("vs GT: rot max %.3f deg, trans max %.4f", rot_errs.max(), tr_errs.max())
+
+        g = MetricsGroup("total_summary_metrics")
+        g.add("total_runtime_sec", time.time() - t0)
+        metrics.append(g)
+
+        # Ortho-axis (PCA) alignment of the exported scene (reference
+        # scene_optimizer.py:218, utils/ellipsoid.py); rigid, so the Sim(3)
+        # pose comparisons above are unaffected.
+        export_scene, _ = align_scene_to_ortho_axes(final)
+        if save_outputs:
+            colmap_io.export_scene_as_colmap_text(
+                export_scene, os.path.join(cfg.output_root, "ba_output"),
+                file_names=loader.image_filenames(), image_sizes=sizes)
+            self._save_reports(metrics, frontend_reports)
+        self._stage("export", t_s)
+        return ReconstructionResult(scene=final, metrics=metrics, wRi_pre_ba=wRi_pre_ba, wti_pre_ba=wti_pre_ba)
 
 
 def _trim(res: ransac.TwoViewResult, n: int) -> ransac.TwoViewResult:

@@ -21,8 +21,14 @@ reports), on a 128-image survey with known geometry and synthetic features
 (back_end_known: cameras kept, rotation error after Sim(3), reprojection
 error, stage seconds, LM iterations/s, then a warm pass profiled through
 the port's profile_dir), and on 24 of those images once on the card and once
-on the CPU (back_end_cpu_check). Each phase logs its seconds. Any failure
-raises and the exit code is non-zero. The last two lines of standard output
+on the CPU (back_end_cpu_check). Last, the default configuration from
+pixels: the port's SIFT preset (4096 keypoints, mutual-NN at ratio 0.8,
+512-pair chunks) on the 128-image survey's renders, cold, warm and profiled
+(run_sift: cameras, rotation error after Sim(3), reprojection error, stage
+seconds and peak memory, every output file), SIFT and mutual-NN on the card
+against the CPU (sift_cpu_check), and the runner CLI on a 12-image Olsson
+folder (runner_cli). Each phase logs its seconds. Any failure raises and the
+exit code is non-zero. The last two lines of standard output
 are a JSON line of per-kernel numbers and the result line
 {"ok": true, "device": {...}}. Without a card it exits non-zero and prints
 no result.
@@ -30,12 +36,17 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import multiprocessing
 import os
+import shutil
 import subprocess
 import sys
 import time
 from collections import defaultdict
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 import torch
@@ -729,6 +740,235 @@ def back_end_cpu_check(dev, num_images: int = 24, rows: int = 8):
                 seconds=seconds)
 
 
+def _render_images(args):
+    """Worker: renders of the synthetic survey (num_images, rows) at the given
+    indices, as uint8 arrays."""
+    num_images, rows, indices = args
+    sys.path.insert(0, ROOT)
+    from gtsfm_tpu_torch.loader.synthetic import SyntheticAerialLoader
+
+    loader = SyntheticAerialLoader(num_images=num_images, rows=rows)
+    return {i: loader.get_image_full_res(i).value_array for i in indices}
+
+
+def survey_loader(num_images: int = 128, rows: int = 8):
+    """The synthetic survey with every image rendered up front, in spawned
+    worker processes (one render takes about a second of host Python; the
+    loader keeps renders, so runs then time the pipeline, not the
+    renderer)."""
+    from gtsfm_tpu_torch.common.image import Image
+    from gtsfm_tpu_torch.loader.synthetic import SyntheticAerialLoader
+
+    loader = SyntheticAerialLoader(num_images=num_images, rows=rows)
+    workers = max(1, min(8, os.cpu_count() or 1))
+    jobs = [(num_images, rows, list(range(w, num_images, workers))) for w in range(workers)]
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        for part in ex.map(_render_images, jobs):
+            for i, arr in part.items():
+                loader._cache[i] = Image(value_array=arr)
+    log(f"survey: {num_images} images {loader._w}x{loader._h} rendered by {workers} processes")
+    return loader
+
+
+def write_olsson_folder(root: str, loader, indices) -> str:
+    """An Olsson-format dataset (images/*.jpg + data.mat with the cell array
+    P of 3x4 world-to-image matrices K [R | t]) from the synthetic survey's
+    images at ``indices``."""
+    import scipy.io
+    from PIL import Image as PILImage
+
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    P = np.empty((1, len(indices)), dtype=object)
+    for k, i in enumerate(indices):
+        img, cal = loader.get_image(i)
+        PILImage.fromarray(img.value_array).save(os.path.join(root, "images", f"image_{k:03d}.jpg"), quality=95)
+        f, _, _, cx, cy = (float(v) for v in cal)
+        K = np.array([[f, 0.0, cx], [0.0, f, cy], [0.0, 0.0, 1.0]])
+        wRi, wti = (np.asarray(a, np.float64) for a in loader.get_camera_pose(i))
+        P[0, k] = K @ np.concatenate([wRi.T, -wRi.T @ wti[:, None]], 1)
+    scipy.io.savemat(os.path.join(root, "data.mat"), {"P": P})
+    return root
+
+
+SIFT_FILES = ("ba_output/cameras.txt", "ba_output/images.txt", "ba_output/points3D.txt",
+              "result_metrics/summary.json", "result_metrics/gtsfm_metrics_report.html",
+              "plots/process_graph.dot", "plots/process_graph.svg", "viewer.html")
+
+
+def sift_config(output_root: str):
+    """The port's SIFT preset (the default configuration) as a user runs it,
+    with only the output root, the cache and the plots changed."""
+    from gtsfm_tpu_torch.pipeline.config import PipelineConfig
+
+    cfg = PipelineConfig().apply_yaml(os.path.join(ROOT, "gtsfm_tpu_torch", "configs", "sift_front_end.yaml"))
+    cfg.output_root = output_root
+    cfg.enable_cache = False
+    # The card's machine has no matplotlib (PERF.md): plots stay off there and
+    # tests/test_torch_default_pipeline.py holds them on the CPU. Every other
+    # output (process graph, web viewer, COLMAP model, metrics) is written.
+    cfg.save_plots = False
+    return cfg
+
+
+def _files(root: str) -> list[str]:
+    return sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root) for f in fs)
+
+
+def run_sift(dev, loader):
+    """SceneOptimizer.run with the SIFT preset at its full width on the
+    survey's renders, from pixels: a cold run, a warm run (both writing every
+    output), then a warm run under the port's profile_dir tracing. Bars:
+    >= 95% of the cameras (122/128), rotation error after Sim(3) max <= 1 deg and median
+    <= 0.1 deg, mean reprojection <= 1 px, and the output files."""
+    from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
+
+    out_root = os.path.join(ROOT, "build", "chip_smoke_run_sift")
+    opt = SceneOptimizer(sift_config(out_root), device=dev)
+    runs, results = {}, {}
+    for name in ("cold", "warm"):
+        shutil.rmtree(out_root, ignore_errors=True)
+        t0 = time.perf_counter()
+        results[name] = opt.run(loader, save_outputs=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        runs[name] = dict(seconds=time.perf_counter() - t0, stage_seconds=dict(opt.stage_seconds),
+                          stage_peak_gb={k: v / 1e9 for k, v in opt.stage_peak_bytes.items()})
+        log(f"run_sift {name}: {runs[name]['seconds']:.2f} s; stage seconds "
+            f"{json.dumps({k: round(v, 4) for k, v in opt.stage_seconds.items()})}; peak GB per stage and two-view span "
+            f"{json.dumps({k: round(v, 3) for k, v in runs[name]['stage_peak_gb'].items()})}")
+    cold = results["cold"]
+    files = _files(out_root)
+    groups = metric_groups(cold)
+    kpts = np.asarray(groups["correspondence_metrics"]["num_keypoints_per_image"])
+    rot = np.asarray(groups["ba_pose_error_metrics"]["rotation_angle_error_deg"])
+    out = dict(
+        images=len(loader), keypoints_min_median_max=[float(kpts.min()), float(np.median(kpts)), float(kpts.max())],
+        pairs=groups["retriever_metrics"]["num_retrieved_image_pairs"],
+        verified_pairs=groups["two_view_metrics"]["num_verified_pairs"],
+        edges_kept=groups["translation_averaging_metrics"]["num_total_edges"],
+        tracks=groups["data_association_metrics"]["num_tracks"],
+        measurements=int(np.sum(groups["data_association_metrics"]["track_lengths"])),
+        cameras=cold.scene.num_cameras(), rot_err_max_deg=float(rot.max()), rot_err_median_deg=float(np.median(rot)),
+        mean_reproj_px=float(cold.scene.mean_reprojection_error()), runs=runs, files=files)
+    log(f"run_sift: {out['images']} images, keypoints per image min/median/max {out['keypoints_min_median_max']}, "
+        f"{out['pairs']} pairs, {out['verified_pairs']} verified, {out['edges_kept']} edges kept, {out['tracks']} "
+        f"tracks, {out['measurements']} measurements; {out['cameras']} cameras, rotation error after Sim(3) max "
+        f"{out['rot_err_max_deg']:.4f} deg, median {out['rot_err_median_deg']:.4f} deg, mean reprojection "
+        f"{out['mean_reproj_px']:.4f} px; files written ({len(files)}): "
+        f"{[f for f in files if not f.startswith('plots/correspondences_')]} + "
+        f"{sum(f.startswith('plots/correspondences_') for f in files)} correspondence plots")
+    missing = [f for f in SIFT_FILES if f not in files]
+    if missing or not any(f.startswith("result_metrics/") and f.endswith(".json") for f in files):
+        raise AssertionError(f"run_sift wrote no {missing}")
+    if out["cameras"] < np.ceil(0.95 * len(loader)):
+        raise AssertionError(f"only {out['cameras']}/{len(loader)} cameras in the final scene")
+    if not (out["rot_err_max_deg"] <= 1.0 and out["rot_err_median_deg"] <= 0.1):
+        raise AssertionError(f"rotation errors too large: {out['rot_err_max_deg']}, {out['rot_err_median_deg']}")
+    if not out["mean_reproj_px"] <= 1.0:
+        raise AssertionError(f"mean reprojection error {out['mean_reproj_px']} px > 1 px")
+
+    prof_dir = os.path.join(ROOT, "build", "chip_smoke_run_sift_profile")
+    opt.config.profile_dir = prof_dir
+    t0 = time.perf_counter()
+    opt.run(loader, save_outputs=False)
+    opt.config.profile_dir = None
+    log(f"run_sift profiled (warm, no outputs): {time.perf_counter() - t0:.2f} s including the trace export; "
+        f"stage seconds {json.dumps({k: round(v, 4) for k, v in opt.stage_seconds.items()})}")
+    out["profile"] = trace_summary(os.path.join(prof_dir, "trace.json"), ("features/", "two_view/", "back_end/"),
+                                   top=14)
+    out["profile"]["stage_seconds"] = dict(opt.stage_seconds)
+    return out
+
+
+SIFT_CPU_UV_PX = 0.01  # a card keypoint corresponds to a CPU keypoint this close
+SIFT_CPU_DESC = 1e-4  # max abs descriptor difference on corresponding keypoints
+SIFT_CPU_RECALL = 0.99
+SIFT_CPU_MATCH = 0.999  # share of live rows with the same mutual-NN match
+
+
+def sift_cpu_check(dev, loader, num_images: int = 4):
+    """SIFT at the preset's 4096 keypoints on the survey's first images, on
+    the card and on the CPU: recall of the CPU's live keypoints by the card's
+    (same mask, within SIFT_CPU_UV_PX), descriptors on those pairs within
+    SIFT_CPU_DESC. Then mutual-NN (ratio 0.8) for the 6 pairs among them on
+    the card's features, on the card and on the CPU: the same match on
+    SIFT_CPU_MATCH of the live rows."""
+    from scipy.spatial import cKDTree
+
+    from gtsfm_tpu_torch.common.image import to_grayscale
+    from gtsfm_tpu_torch.frontend import sift
+    from gtsfm_tpu_torch.ops import matching
+
+    grays = np.stack([to_grayscale(loader.get_image(i)[0].value_array) for i in range(num_images)])
+    feats = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        out = sift.detect_and_describe(torch.as_tensor(grays, device=d), max_keypoints=4096)
+        feats[name] = sift.SiftFeatures(*(t.cpu().numpy() for t in out))
+        log(f"sift_cpu_check: SIFT on the {name} {time.perf_counter() - t0:.2f} s (first call)")
+    card, cpu = feats["card"], feats["cpu"]
+    recall, desc_err, counts = [], 0.0, []
+    for b in range(num_images):
+        mc, mp = card.mask[b] > 0, cpu.mask[b] > 0
+        dist, nn = cKDTree(card.uv[b][mc]).query(cpu.uv[b][mp])
+        ok = dist <= SIFT_CPU_UV_PX
+        recall.append(float(ok.mean()))
+        counts.append((int(mc.sum()), int(mp.sum())))
+        desc_err = max(desc_err, float(np.abs(cpu.descriptor[b][mp][ok] - card.descriptor[b][mc][nn[ok]]).max()))
+    pairs = [(a, b) for a in range(num_images) for b in range(a + 1, num_images)]
+    ia, ib = [a for a, _ in pairs], [b for _, b in pairs]
+    idx = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t = lambda x: torch.as_tensor(x, device=d)  # noqa: E731
+        got, _ = matching.mutual_nearest_matching(t(card.descriptor[ia]), t(card.descriptor[ib]), t(card.mask[ia]),
+                                                  t(card.mask[ib]), ratio_test=0.8)
+        idx[name] = got.cpu().numpy()
+    live = card.mask[ia] > 0
+    same = float(np.mean((idx["card"] == idx["cpu"])[live]))
+    n_match = int(np.sum(idx["card"] >= 0))
+    log(f"sift_cpu_check: {num_images} images, live keypoints (card, cpu) {counts}; recall {recall} within "
+        f"{SIFT_CPU_UV_PX} px (limit {SIFT_CPU_RECALL}); max descriptor difference {desc_err:.3e} (limit "
+        f"{SIFT_CPU_DESC}); mutual-NN on {len(pairs)} pairs: {n_match} matches, the same on {same:.5%} of live "
+        f"rows (limit {SIFT_CPU_MATCH:.1%})")
+    if min(recall) < SIFT_CPU_RECALL or desc_err > SIFT_CPU_DESC or same < SIFT_CPU_MATCH:
+        raise AssertionError("SIFT or mutual-NN on the card disagrees with the CPU")
+    return dict(images=num_images, live_keypoints=counts, recall=recall, desc_max_abs_err=desc_err,
+                pairs=len(pairs), matches=n_match, match_agreement=same)
+
+
+def runner_cli(num_images: int = 12):
+    """python -m gtsfm_tpu_torch.runner's main() with the default
+    configuration (plots off, as in sift_config) on an Olsson folder (JPG +
+    data.mat) of a two-row survey, written under build/, then with
+    ``--loader colmap`` on the model it wrote and the same images: the DONE
+    lines and the model files."""
+    from gtsfm_tpu_torch.runner import __main__ as runner
+
+    root = os.path.join(ROOT, "build", "chip_smoke_runner")
+    shutil.rmtree(root, ignore_errors=True)
+    loader = survey_loader(num_images, rows=2)
+    data = write_olsson_folder(os.path.join(root, "survey"), loader, range(num_images))
+    outs = {}
+    for name, extra in (("olsson", []), ("colmap", ["--loader", "colmap", "--images_dir",
+                                                     os.path.join(data, "images")])):
+        out = os.path.join(root, f"results_{name}")
+        dataset = data if name == "olsson" else os.path.join(root, "results_olsson", "ba_output")
+        argv = ["--dataset_root", dataset, "--output_root", out, "--no_cache", "--override", "save_plots=false"]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = runner.main(argv + extra)
+        seconds = time.perf_counter() - t0
+        done = [line for line in buf.getvalue().splitlines() if line.startswith("DONE:")]
+        files = _files(out)
+        log(f"runner_cli --loader {name}: {num_images} images, rc {rc}, {seconds:.2f} s: {done}; {len(files)} files")
+        missing = [f for f in SIFT_FILES if f not in files]
+        if rc != 0 or len(done) != 1 or not done[0].startswith(f"DONE: {num_images} cameras") or missing:
+            raise AssertionError(f"runner CLI --loader {name}: rc {rc}, {done}, missing {missing}")
+        outs[name] = dict(seconds=seconds, done=done[0], files=len(files))
+    return dict(images=num_images, **outs)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA card",
@@ -772,6 +1012,10 @@ def main() -> int:
     deep = phase("run_deep", run_deep, dev)
     known = phase("back_end_known", back_end_known, dev)
     cpu_check = phase("back_end_cpu_check", back_end_cpu_check, dev)
+    survey = phase("render_survey", survey_loader, 128, 8)
+    sift_run = phase("run_sift", run_sift, dev, survey)
+    sift_check = phase("sift_cpu_check", sift_cpu_check, dev, survey)
+    cli = phase("runner_cli", runner_cli)
 
     path = checks["path"]
     kernels = [{
@@ -799,7 +1043,8 @@ def main() -> int:
                                                           "stages", "launches")},
                     "profile": profile, "cross_check": cross, "known_geometry": geo,
                     "checks": checks, "run_deep": deep, "back_end_known": known,
-                    "back_end_cpu_check": cpu_check, "phase_seconds": phase_s}, default=float))
+                    "back_end_cpu_check": cpu_check, "run_sift": sift_run, "sift_cpu_check": sift_check,
+                    "runner_cli": cli, "phase_seconds": phase_s}, default=float))
     log(f"{smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -4,7 +4,8 @@ The port mirrors ``gtsfm_tpu``'s relative module paths and public names, so
 ``gtsfm_tpu.X.f`` has its counterpart at ``gtsfm_tpu_torch.X.f``. Plain tensor
 code is PyTorch; every Pallas kernel of the JAX package becomes a kernel
 written by hand for Hopper (sources under ``csrc/``, built with nvcc at first
-use). The package imports torch, numpy and scipy only — never jax.
+use). The package imports torch, numpy and scipy (PIL to read images, yaml
+for presets, matplotlib for the optional plots) — never jax.
 
 Entry points take an explicit ``device`` that defaults to ``"cuda"``; with no
 card they raise (no silent CPU fallback). Tests pass ``device="cpu"``.

@@ -1,2 +1,2 @@
-"""Feature front end: the per-image feature record and the feature cache;
-deep detectors and matchers under ``deep/``."""
+"""Feature front end: the SIFT detector and the per-image feature record
+(``sift``), the feature cache; deep detectors and matchers under ``deep/``."""

@@ -1,2 +1,2 @@
 """Dataset loaders (reference gtsfm/loader/): the LoaderBase contract,
-the synthetic aerial survey and the Olsson format."""
+the synthetic aerial survey, the Olsson format and COLMAP text models."""

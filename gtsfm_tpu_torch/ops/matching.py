@@ -12,6 +12,13 @@ import torch
 
 NEG = -1e9
 
+# Largest (pairs, K1, K2) float32 similarity block that
+# mutual_nearest_matching holds at once: the pairs axis is split into blocks
+# under this size (64 pairs at 4096 x 4096 keypoints), and the block is the
+# only tensor of that size alive, so the matcher's peak stays under about
+# 4.3 GB besides its inputs at any batch size.
+SIM_BLOCK_BYTES = 4 << 30
+
 
 def mutual_nearest_matching(desc1, desc2, mask1, mask2,
                             ratio_test: float | None = 0.8,
@@ -22,11 +29,22 @@ def mutual_nearest_matching(desc1, desc2, mask1, mask2,
     mask1/mask2: (B, K) validity; ratio_test: Lowe ratio on L2 distances
     (None disables); distance_threshold: optional max L2 distance.
     Returns match_idx (B, K1) int32 (-1 = unmatched) and match_mask (B, K1).
+    Pairs are matched independently, in blocks of at most SIM_BLOCK_BYTES of
+    similarity.
     """
+    B, K1, _ = desc1.shape
+    step = max(1, SIM_BLOCK_BYTES // (4 * K1 * desc2.shape[1]))
+    parts = [_match_block(desc1[s:s + step], desc2[s:s + step], mask1[s:s + step], mask2[s:s + step],
+                          ratio_test, distance_threshold) for s in range(0, B, step)]
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def _match_block(desc1, desc2, mask1, mask2, ratio_test, distance_threshold):
     sim = torch.einsum("bkd,bld->bkl", desc1, desc2)
-    neg = torch.full_like(sim, NEG)
-    sim = torch.where(mask1[:, :, None] > 0, sim, neg)
-    sim = torch.where(mask2[:, None, :] > 0, sim, neg)
+    sim.masked_fill_(~(mask1[:, :, None] > 0), NEG)
+    sim.masked_fill_(~(mask2[:, None, :] > 0), NEG)
 
     s_best, best12 = torch.max(sim, dim=2)
     best21 = torch.argmax(sim, dim=1)
@@ -37,8 +55,9 @@ def mutual_nearest_matching(desc1, desc2, mask1, mask2,
     # L2 distance for unit descriptors: d^2 = 2 - 2 s.
     d_best_sq = torch.clamp(2.0 - 2.0 * s_best, min=0.0)
     if ratio_test is not None:
-        sim2 = sim.scatter(2, best12[..., None], NEG)
-        d_second_sq = torch.clamp(2.0 - 2.0 * torch.amax(sim2, dim=2), min=0.0)
+        # Second best: the best masked out in place (sim is not read again).
+        s_second = torch.amax(sim.scatter_(2, best12[..., None], NEG), dim=2)
+        d_second_sq = torch.clamp(2.0 - 2.0 * s_second, min=0.0)
         ok = ok & (d_best_sq < (ratio_test**2) * d_second_sq)
     if distance_threshold is not None:
         ok = ok & (d_best_sq < distance_threshold**2)

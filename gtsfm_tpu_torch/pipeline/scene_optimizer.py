@@ -6,8 +6,8 @@ gtsfm/multi_view_optimizer.py:29, and the runner loop,
 runner/gtsfm_runner_base.py:275-413). ``run(loader)`` goes through:
 
   1. retrieval -> pair list (exhaustive or sequential window);
-  2. features (SuperPoint) for every image, batched per image shape and
-     cached by content hash;
+  2. features (SIFT or SuperPoint) for every image, batched per image shape
+     and cached by content hash;
   3. batched matching (LightGlue, or mutual nearest neighbour) and batched
      RANSAC two-view estimation plus two-view BA, in fixed-size chunks of
      pairs (cached by the two-view cache);
@@ -17,12 +17,13 @@ runner/gtsfm_runner_base.py:275-413). ``run(loader)`` goes through:
   7. robust triangulation;
   8. multi-stage global BA with landmark filtering;
   9. Sim(3) comparison with ground truth, ortho-axis alignment, COLMAP
-     export and the metrics JSON/HTML.
+     export, the metrics JSON/HTML, the process graph, the diagnostic plots
+     and the web viewer.
 
 Runs on one device, ``"cuda"`` unless the caller asks otherwise. Other
 detectors and matchers, the GRIC gate, fisheye and rig loaders, pose priors,
-distributed BA, densification, plots, the process graph and the web viewer
-are later slices (ROADMAP queue 1) and raise NotImplementedError.
+distributed BA and densification are later slices (ROADMAP queue 1) and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -79,6 +80,10 @@ class SceneOptimizer:
         self._matcher = None
         # Wall seconds per stage of the last run() (device-synchronized).
         self.stage_seconds: dict[str, float] = {}
+        # Peak device bytes allocated per stage of the last run(), and per
+        # span of the two-view stage (CUDA only).
+        self.stage_peak_bytes: dict[str, int] = {}
+        self._peak_since_stage = 0
 
     # ------------------------------------------------------------ stages
 
@@ -96,11 +101,14 @@ class SceneOptimizer:
 
     def _make_detector(self):
         """Returns detect(gray images (B, H, W)) -> batched features with
-        (uv, response, descriptor, mask) fields, per the feature type."""
+        (uv, response, descriptor, mask) fields, and ``scale`` for SIFT, per
+        the feature type."""
         cfg = self.config.frontend
+        if cfg.feature_type == "sift":
+            return lambda grays: sift.detect_and_describe(
+                torch.as_tensor(grays, dtype=torch.float32).to(self.device), max_keypoints=cfg.max_keypoints)
         if cfg.feature_type != "superpoint":
-            item = "'SIFT front end'" if cfg.feature_type == "sift" else "'other front ends'"
-            raise NotImplementedError(f"feature_type {cfg.feature_type!r} " + _NOT_PORTED.format(item))
+            raise NotImplementedError(f"feature_type {cfg.feature_type!r} " + _NOT_PORTED.format("'other front ends'"))
         from gtsfm_tpu_torch.frontend.deep import superpoint as sp_mod
 
         sp = sp_mod.SuperPoint(max_keypoints=cfg.max_keypoints,
@@ -122,7 +130,13 @@ class SceneOptimizer:
 
     def compute_features(self, loader: LoaderBase):
         """Features of every image: (list of host SiftFeatures records,
-        Cal3Bundler params (N, 5), image sizes [(w, h)])."""
+        Cal3Bundler params (N, 5), image sizes [(w, h)]).
+
+        Detection runs on chunks of same-shape images: ``detect_batch``
+        images per call when set. With None, SIFT takes
+        ``sift.images_per_batch(H, W)`` images (its per-level maps hold about
+        ``sift.PEAK_BYTES_PER_PIXEL`` bytes per pixel, so a chunk stays near
+        2 GiB), SuperPoint a whole shape group."""
         cfg = self.config.frontend
         cache = FeatureCache(os.path.join(self.config.cache_dir, "features"),
                              self.config.enable_cache)
@@ -147,16 +161,21 @@ class SceneOptimizer:
         # One forward pass per chunk of shape-uniform images.
         B = cfg.detect_batch
         for shape, idxs in misses.items():
-            step = len(idxs) if B is None else max(1, int(B))
+            if B is not None:
+                step = max(1, int(B))
+            elif cfg.feature_type == "sift":
+                step = sift.images_per_batch(*shape)
+            else:
+                step = len(idxs)
             for s in range(0, len(idxs), step):
                 chunk = idxs[s:s + step]
                 with record_function("features/detect"):
                     raw = detect(np.stack([grays[i][0] for i in chunk]))
                 host = {k: getattr(raw, k).cpu().numpy() for k in ("uv", "response", "descriptor", "mask")}
+                host["scale"] = (raw.scale.cpu().numpy() if hasattr(raw, "scale")
+                                 else np.zeros_like(host["response"]))
                 for j, i in enumerate(chunk):
-                    f = sift.SiftFeatures(uv=host["uv"][j], scale=np.zeros_like(host["response"][j]),
-                                          response=host["response"][j],
-                                          descriptor=host["descriptor"][j], mask=host["mask"][j])
+                    f = sift.SiftFeatures(**{k: v[j] for k, v in host.items()})
                     cache.save(grays[i][1], f._asdict())
                     feats[i] = f
             logger.info("features: %d images at shape %s done", len(idxs), shape)
@@ -198,16 +217,24 @@ class SceneOptimizer:
         Returns (TwoViewResult, match_idx (P, K) int32) on the device and,
         with ``return_stages``, {tag: TwoViewResult} at the reference's
         report points (PRE_BA / POST_BA / POST_ISP,
-        two_view_estimator.py:38-41)."""
+        two_view_estimator.py:38-41).
+
+        Each image's descriptors, mask, keypoints and calibration go to the
+        device once per call, and every chunk gathers its pairs there (the
+        JAX package's per-image stacks), whichever the matcher."""
         chunk = int(self.config.two_view.chunk_size)
+        up = lambda arrs: torch.as_tensor(np.stack([np.asarray(a) for a in arrs]),  # noqa: E731
+                                          dtype=torch.float32).to(self.device)
+        stacks = dict(desc=up([f.descriptor for f in feats]), mask=up([f.mask for f in feats]),
+                      uv=up([f.uv for f in feats]), cal=up(cals))
         if len(pairs) <= chunk:
-            return self._run_two_view_chunk(feats, cals, pairs, return_stages)
+            return self._run_two_view_chunk(feats, pairs, stacks, return_stages)
         results, idxs, stage_parts = [], [], {}
         for s in range(0, len(pairs), chunk):
             sub = list(pairs[s:s + chunk])
             n_real = len(sub)
             sub += [sub[-1]] * (chunk - n_real)
-            out = self._run_two_view_chunk(feats, cals, sub, return_stages)
+            out = self._run_two_view_chunk(feats, sub, stacks, return_stages)
             results.append(_trim(out[0], n_real))
             idxs.append(out[1][:n_real])
             if return_stages:
@@ -219,18 +246,20 @@ class SceneOptimizer:
             return res, match_idx, {tag: _concat(parts) for tag, parts in stage_parts.items()}
         return res, match_idx
 
-    def _run_two_view_chunk(self, feats, cals, pairs, return_stages: bool = False):
+    def _run_two_view_chunk(self, feats, pairs, stacks, return_stages: bool = False):
         fe = self.config.frontend
         tv = self.config.two_view
         if tv.degeneracy_check:
             raise NotImplementedError("two_view.degeneracy_check (GRIC) " + _NOT_PORTED.format("'verifiers'"))
         dev = self.device
+        # On-device gather of the chunk's pairs from the per-image stacks.
+        pa = torch.as_tensor([a for a, _ in pairs], device=dev)
+        pb = torch.as_tensor([b for _, b in pairs], device=dev)
 
         def stack(field, side):
-            arr = np.stack([np.asarray(getattr(feats[p[side]], field)) for p in pairs])
-            return torch.as_tensor(arr, dtype=torch.float32).to(dev)
+            return stacks[field][pa if side == 0 else pb]
 
-        d1, d2 = stack("descriptor", 0), stack("descriptor", 1)
+        d1, d2 = stack("desc", 0), stack("desc", 1)
         m1, m2 = stack("mask", 0), stack("mask", 1)
         k1, k2 = stack("uv", 0), stack("uv", 1)
         # Profiler spans (no cost unless a torch.profiler session is active):
@@ -241,9 +270,9 @@ class SceneOptimizer:
             else:
                 idx, mm = self._deep_match(feats, pairs, d1, d2, k1, k2, m1, m2)
             x1, x2, cm = matching.matches_to_correspondences(idx, mm, k1, k2)
+        self._span_peak("two_view/match")
 
-        cal_a = torch.as_tensor(np.stack([cals[a] for a, _ in pairs]), dtype=torch.float32).to(dev)
-        cal_b = torch.as_tensor(np.stack([cals[b] for _, b in pairs]), dtype=torch.float32).to(dev)
+        cal_a, cal_b = stack("cal", 0), stack("cal", 1)
         x1n = cameras.normalize_keypoints(cameras.K_from_bundler(cal_a)[:, None], x1)
         x2n = cameras.normalize_keypoints(cameras.K_from_bundler(cal_b)[:, None], x2)
         f_mean = (cal_a[:, 0] + cal_b[:, 0]) / 2.0
@@ -256,6 +285,7 @@ class SceneOptimizer:
                 min_inliers=tv.min_inliers,
                 min_inlier_ratio=tv.min_inlier_ratio,
             )
+        self._span_peak("two_view/ransac")
         stages = {"PRE_BA": res}
         if tv.ba_enabled:
             from gtsfm_tpu_torch.twoview import estimator as tv_est
@@ -265,6 +295,7 @@ class SceneOptimizer:
                     res.i2Ri1, res.i2Ui1, x1n, x2n, res.inlier_mask,
                     tv.ba_reproj_thresh_px / f_mean, iterations=tv.ba_iterations,
                 )
+            self._span_peak("two_view/ba")
             num_inl = torch.sum(refined.inlier_mask, dim=-1)
             stages["POST_BA"] = ransac.TwoViewResult(
                 i2Ri1=refined.i2Ri1,
@@ -288,11 +319,27 @@ class SceneOptimizer:
             torch.cuda.synchronize(self.device)
 
     def _stage(self, name: str, t_start: float) -> float:
-        """Record stage wall seconds (device-synchronized); returns now."""
+        """Record stage wall seconds (device-synchronized) and, on a card,
+        the stage's peak allocated bytes; returns now."""
         self._sync()
         now = time.perf_counter()
         self.stage_seconds[name] = now - t_start
+        if self.device.type == "cuda":
+            self.stage_peak_bytes[name] = max(torch.cuda.max_memory_allocated(self.device), self._peak_since_stage)
+            self._peak_since_stage = 0
+            torch.cuda.reset_peak_memory_stats(self.device)
         return now
+
+    def _span_peak(self, name: str) -> None:
+        """On a card, record the peak bytes allocated since the previous
+        reading as span ``name``'s (the largest over chunks); the stage's
+        peak still includes it. Needs no synchronization: the allocator
+        counts at launch time."""
+        if self.device.type == "cuda":
+            peak = torch.cuda.max_memory_allocated(self.device)
+            self.stage_peak_bytes[name] = max(self.stage_peak_bytes.get(name, 0), peak)
+            self._peak_since_stage = max(self._peak_since_stage, peak)
+            torch.cuda.reset_peak_memory_stats(self.device)
 
     def _check_ported(self, loader: LoaderBase, save_outputs: bool) -> None:
         cfg = self.config
@@ -304,8 +351,6 @@ class SceneOptimizer:
             raise NotImplementedError("distributed_ba='on' " + _NOT_PORTED.format("'multi-GPU'"))
         if cfg.densify.enabled:
             raise NotImplementedError("densify " + _NOT_PORTED.format("'densify'"))
-        if save_outputs and cfg.save_plots:
-            raise NotImplementedError("save_plots " + _NOT_PORTED.format("'ui/ and visualization/'"))
 
     def _save_reports(self, metrics, frontend_reports) -> None:
         out = os.path.join(self.config.output_root, "result_metrics")
@@ -314,6 +359,40 @@ class SceneOptimizer:
         for tag, reps in frontend_reports.items():
             pose_metrics.save_two_view_reports(reps, os.path.join(out, f"two_view_report_{tag}.json"))
         generate_metrics_report_html(metrics, os.path.join(out, "gtsfm_metrics_report.html"))
+
+    def _save_plots(self, loader, pairs, feats, res_np, match_idx, final, edges, wti_gt) -> None:
+        """Correspondence plots of the ``max_correspondence_plots`` verified
+        pairs with the most inliers, the view-graph topology and the 3D scene
+        under output_root/plots (reference scene_optimizer.py:366-418). A
+        missing matplotlib raises; a failed plot is only logged."""
+        from gtsfm_tpu_torch.visualization import plots as viz_plots
+
+        plots_dir = os.path.join(self.config.output_root, "plots")
+        os.makedirs(plots_dir, exist_ok=True)
+        try:
+            order = np.argsort(-np.asarray(res_np.num_inliers))
+            for k in order[: self.config.max_correspondence_plots]:
+                a, b = pairs[int(k)]
+                if not bool(res_np.success[k]):
+                    continue
+                ia = np.nonzero(match_idx[k] >= 0)[0]
+                if ia.size == 0 or res_np.inlier_mask[k].shape[0] != np.asarray(feats[a].uv).shape[0]:
+                    continue
+                ib = match_idx[k][ia]
+                img_a, _ = loader.get_image(a)
+                img_b, _ = loader.get_image(b)
+                viz_plots.plot_correspondences(
+                    img_a.value_array, img_b.value_array, np.asarray(feats[a].uv)[ia], np.asarray(feats[b].uv)[ib],
+                    inlier_mask=res_np.inlier_mask[k][ia] > 0,
+                    save_path=os.path.join(plots_dir, f"correspondences_{a:04d}_{b:04d}.png"))
+            wti = final.wti.cpu().numpy()
+            viz_plots.plot_pose_graph(wti, edges=edges, wti_gt=wti_gt,
+                                      save_path=os.path.join(plots_dir, "view_graph_topology.png"))
+            viz_plots.plot_scene_3d(final.points.cpu().numpy()[final.track_mask.cpu().numpy() > 0],
+                                    wti[final.camera_mask.cpu().numpy() > 0],
+                                    save_path=os.path.join(plots_dir, "scene_3d.png"))
+        except Exception as e:  # diagnostics must never kill the run
+            logger.warning("plot saving failed: %s", e)
 
     def _empty_result(self, loader, cals, metrics, frontend_reports, save_outputs, reason: str, t0: float,
                       wRi: np.ndarray | None = None,
@@ -356,7 +435,9 @@ class SceneOptimizer:
         cfg = self.config
         self._check_ported(loader, save_outputs)
         dev = self.device
-        self.stage_seconds = {}
+        self.stage_seconds, self.stage_peak_bytes, self._peak_since_stage = {}, {}, 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.time()
         t_s = time.perf_counter()
         metrics: list[MetricsGroup] = []
@@ -630,10 +711,22 @@ class SceneOptimizer:
         # pose comparisons above are unaffected.
         export_scene, _ = align_scene_to_ortho_axes(final)
         if save_outputs:
+            from gtsfm_tpu_torch.ui.process_graph import save_process_graph
+            from gtsfm_tpu_torch.visualization.web_viewer import export_web_viewer
+
+            out = cfg.output_root
             colmap_io.export_scene_as_colmap_text(
-                export_scene, os.path.join(cfg.output_root, "ba_output"),
+                export_scene, os.path.join(out, "ba_output"),
                 file_names=loader.image_filenames(), image_sizes=sizes)
             self._save_reports(metrics, frontend_reports)
+            save_process_graph(cfg, os.path.join(out, "plots"))
+            if cfg.save_plots:
+                self._save_plots(loader, pairs, feats, res_np, match_idx, final, edges,
+                                 wti_gt if gt_valid.sum() >= 3 else None)
+            # Interactive 3D web viewer (reference rtf_vis_tool equivalent):
+            # one standalone HTML file.
+            export_web_viewer(os.path.join(out, "ba_output"), os.path.join(out, "viewer.html"),
+                              metrics_dir=os.path.join(out, "result_metrics"))
         self._stage("export", t_s)
         return ReconstructionResult(scene=final, metrics=metrics, wRi_pre_ba=wRi_pre_ba, wti_pre_ba=wti_pre_ba)
 

@@ -222,7 +222,7 @@ def run_slice(dev):
             raise AssertionError(f"two-view result {name} is not finite or has shape {tuple(t.shape)}")
     if min(kpts) == 0:
         raise AssertionError(f"SuperPoint kept no keypoints in some image: {kpts}")
-    return dict(opt=opt, cfg=cfg, loader=loader, pairs=pairs, feats=feats, launches=launches, stages=stages,
+    return dict(opt=opt, cfg=cfg, loader=loader, pairs=pairs, feats=feats, cals=cals, launches=launches, stages=stages,
                 pairs_count=P, keypoints=kpts, matches=n_match.tolist(),
                 verified=int(success.sum()), path_shape=(4 * P, K, 64))
 
@@ -335,7 +335,7 @@ def cross_check_cpu(slice_out, dev):
     size = float(cfg.max_resolution)
     norm = lambda k: (k - size / 2.0) / size  # noqa: E731  LightGlue's keypoint normalisation
 
-    gpu = opt._lightglue()
+    gpu = opt._deep_matcher()
     cpu = lightglue.LightGlue(device="cpu").load({k: v.cpu() for k, v in gpu.params.items()})
     outs = {}
     for name, lg, d in (("cuda", gpu, dev), ("cpu", cpu, torch.device("cpu"))):
@@ -354,6 +354,254 @@ def cross_check_cpu(slice_out, dev):
     if agree < 0.99 or sim_err > 1e-3 * max(scale, 1.0):
         raise AssertionError("LightGlue on the card disagrees with the CPU")
     return dict(match_agreement=agree, sim_max_abs_err=sim_err, sim_scale=scale)
+
+
+def _pair_stacks(feats, sel, fields=("descriptor", "uv", "response", "mask")):
+    """Host stacks (side 0, side 1) of the given fields for the pairs sel."""
+    return {f: [torch.as_tensor(np.stack([getattr(feats[p[s]], f) for p in sel]), dtype=torch.float32)
+                for s in (0, 1)] for f in fields}
+
+
+def superglue_cpu_check(dev, slice_out):
+    """matcher_type="superglue" on the deep cell (30 pairs in one chunk,
+    K 2048, seeded weights) through run_two_view on the card, counting the
+    attention launches; then two of its pairs through the port's SuperGlue
+    on the card and on the CPU with the same weights and inputs: the log
+    assignment's largest difference (logged) and the mutual-best matches
+    (threshold 0), which agree on >= 99% of live keypoints."""
+    import copy
+
+    from gtsfm_tpu_torch.frontend.deep import superglue
+    from gtsfm_tpu_torch.ops import attention
+    from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
+
+    cfg = copy.deepcopy(slice_out["cfg"])
+    cfg.frontend.matcher_type = "superglue"
+    opt = SceneOptimizer(cfg, device=dev)
+    feats, cals, pairs = slice_out["feats"], slice_out["cals"], slice_out["pairs"]
+    attention.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    res, match_idx = opt.run_two_view(feats, cals, pairs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = attention.flash_attention.launches
+
+    st = _pair_stacks(feats, [pairs[0], pairs[-1]])
+    size = torch.tensor([cfg.max_resolution] * 2, dtype=torch.float32)
+    norm = lambda k: (k - size / 2.0) / (size.max() * 0.7)  # noqa: E731  SuperGlue's normalisation
+    gpu = opt._deep_matcher()
+    cpu = superglue.SuperGlue(device="cpu", bin_score=gpu.bin_score).load({k: v.cpu() for k, v in gpu.params.items()})
+    outs = {}
+    for name, sg, d in (("cuda", gpu, dev), ("cpu", cpu, torch.device("cpu"))):
+        args = [t.to(d) for t in (*st["descriptor"], norm(st["uv"][0]), norm(st["uv"][1]), *st["response"],
+                                  *st["mask"])]
+        with torch.no_grad():
+            md0, md1 = sg.net.descriptors(*args)
+            la = superglue.log_sinkhorn(superglue.scores_of(md0, md1), args[6], args[7], sg.bin_score)
+            idx, _ = superglue.extract_matches(la, args[6], args[7], 0.0)
+        outs[name] = (la.cpu(), idx.cpu())
+    m0, m1 = st["mask"]
+    live = torch.ones_like(outs["cpu"][0], dtype=torch.bool)
+    live[:, :-1] &= m0[:, :, None] > 0
+    live[:, :, :-1] &= m1[:, None, :] > 0
+    la_err = float((outs["cuda"][0] - outs["cpu"][0]).abs()[live].max())
+    agree = float((outs["cuda"][1] == outs["cpu"][1])[m0 > 0].float().mean())
+    log(f"superglue_cpu_check: run_two_view on {len(pairs)} pairs (K={m0.shape[1]}) {seconds:.3f} s, "
+        f"attention launches {launches}, matches {int((match_idx >= 0).sum())}, verified "
+        f"{int(res.success.sum())}; 2 pairs card vs CPU: max |log assignment| difference {la_err:.3e}, "
+        f"mutual-best matches agree on {agree:.4%} of live keypoints (limit 99%)")
+    if dev.type == "cuda" and launches < 36:
+        raise AssertionError(f"SuperGlue ran {launches} attention launches on the card, expected >= 36")
+    if agree < 0.99:
+        raise AssertionError("SuperGlue on the card disagrees with the CPU")
+    return dict(pairs=len(pairs), seconds=seconds, launches=launches, log_assign_max_abs_err=la_err,
+                match_agreement=agree)
+
+
+class _ShapeLog:
+    """Records the (BH, Kq, Kkv) of every attention-kernel call while
+    installed in place of ops.attention.flash_attention (the wrapper's own
+    launch count is untouched)."""
+
+    def __init__(self, attention):
+        self.attention, self.inner, self.shapes = attention, attention.flash_attention, defaultdict(int)
+
+    def __call__(self, q, k, v, kv_mask):
+        self.shapes[(q.shape[0], q.shape[1], k.shape[1])] += 1
+        return self.inner(q, k, v, kv_mask)
+
+    @property
+    def launches(self):  # the wrapper counts through its module name
+        return self.inner.launches
+
+    @launches.setter
+    def launches(self, n):
+        self.inner.launches = n
+
+    def __enter__(self):
+        self.attention.flash_attention = self
+        return self
+
+    def __exit__(self, *exc):
+        self.attention.flash_attention = self.inner
+
+
+def decisive_lightglue_heads(params: dict, inputs, exit_layer: int = 4, prune_layer: int = 1) -> dict:
+    """LightGlue weights with heads that decide clearly (seeded weights
+    leave every token-confidence near 0.5): no token confident (logit -10)
+    except at prune_layer, where the token-confidence head is scaled 50x
+    and centred on the median logit of the live tokens of ``inputs`` (the
+    matcher's normalised (desc0, desc1, pos0, pos1, mask0, mask1)), so half
+    of them are confident, and matchability is -10, so those are pruned;
+    every token confident at exit_layer, so the run exits there."""
+    from gtsfm_tpu_torch.frontend.deep import lightglue
+
+    p = {k: v.clone() for k, v in params.items()}
+    for name in p:
+        if name.startswith("token_conf") and name.endswith("bias"):
+            p[name].fill_(-10.0)
+    p[f"token_conf{prune_layer}.weight"] *= 50.0
+    p[f"token_conf{prune_layer}.bias"].fill_(0.0)
+    net = lightglue.LightGlueNet().to(p["input_proj.weight"].device).eval()
+    net.load_state_dict(p)
+    mask0, mask1 = inputs[4], inputs[5]
+    with torch.no_grad():
+        x0, x1, cos0, sin0, cos1, sin1 = net.embed(*inputs[:4])
+        for i in range(prune_layer + 1):
+            x0, x1 = net.layer(i, x0, x1, cos0, sin0, cos1, sin1, mask0, mask1)
+        head = getattr(net, f"token_conf{prune_layer}")
+        logits = torch.cat([head(x0)[..., 0][mask0 > 0], head(x1)[..., 0][mask1 > 0]])
+    p[f"token_conf{prune_layer}.bias"].fill_(-float(torch.median(logits)))
+    p[f"matchability{prune_layer}.bias"].fill_(-10.0)
+    p[f"token_conf{exit_layer}.bias"].fill_(10.0)
+    return p
+
+
+LG_SIDE1_KEYPOINTS = 600  # the second run caps image 1 of every pair at this many live keypoints
+
+
+def lightglue_adaptive(dev, slice_out):
+    """LightGlue's adaptive path on the deep cell (30 pairs, K 2048, seeded
+    weights), twice: (a) through run_two_view with upstream's confidences
+    (depth 0.95, width 0.99); (b) through LightGlue's own entry point with
+    decisive_lightglue_heads and image 1 of each pair capped at
+    LG_SIDE1_KEYPOINTS live keypoints, so the run exits early and prunes
+    each side to its own width (cross-attention at Kq != Kkv). Each run
+    logs depth, widths and every (BH, Kq, Kkv) the kernel ran at; then two
+    of its pairs go through the same matcher on the card and on the CPU:
+    the exit and pruning decisions side by side, and where they agree the
+    mutual-best matches (threshold 0) agree on >= 99% of live keypoints."""
+    import copy
+
+    from gtsfm_tpu_torch.frontend.deep import lightglue
+    from gtsfm_tpu_torch.ops import attention
+    from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
+
+    feats, cals, pairs = slice_out["feats"], slice_out["cals"], slice_out["pairs"]
+    cfg = copy.deepcopy(slice_out["cfg"])
+    cfg.frontend.lightglue_depth_confidence, cfg.frontend.lightglue_width_confidence = 0.95, 0.99
+    opt = SceneOptimizer(cfg, device=dev)
+    seeded = opt._deep_matcher()
+    shape = (cfg.max_resolution, cfg.max_resolution)
+    st = _pair_stacks(feats, pairs, ("descriptor", "uv", "mask"))
+    runs = {}
+    for name in ("upstream", "decisive"):
+        if name == "upstream":
+            lg = seeded
+            attention.flash_attention.launches = 0
+            with _ShapeLog(attention) as shapes:
+                opt.run_two_view(feats, cals, pairs)
+                torch.cuda.synchronize()
+            masks = st["mask"]
+        else:
+            m1 = st["mask"][1].clone()
+            m1[:, LG_SIDE1_KEYPOINTS:] = 0.0
+            masks = [st["mask"][0], m1]
+            size = torch.tensor(shape[::-1], dtype=torch.float32)
+            pos = [((k - size / 2.0) / size.max()).to(dev) for k in st["uv"]]  # LightGlue's normalisation
+            params = decisive_lightglue_heads(seeded.params, [*(t.to(dev) for t in st["descriptor"]), *pos,
+                                                              *(m.to(dev) for m in masks)])
+            lg = lightglue.LightGlue(params=params, depth_confidence=0.95, width_confidence=0.99, device=dev)
+            attention.flash_attention.launches = 0
+            with _ShapeLog(attention) as shapes:
+                lg(*st["descriptor"], *st["uv"], *masks, shape, shape)
+                torch.cuda.synchronize()
+        launches = attention.flash_attention.launches
+        run = dict(depth=lg.last_depth, widths=list(lg.last_widths), launches=launches,
+                   shapes={f"{bh}x{kq}x{kkv}": n for (bh, kq, kkv), n in sorted(shapes.shapes.items())})
+        # two of its pairs on the card and on the CPU, same weights and inputs
+        sel = [0, len(pairs) - 1]
+        decisions = {}
+        for dname, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            m = lightglue.LightGlue(params={k: v.to(d) for k, v in lg.params.items()}, match_threshold=0.0,
+                                    depth_confidence=0.95, width_confidence=0.99, device=d)
+            idx, _ = m(*(t[sel] for t in (*st["descriptor"], *st["uv"], *masks)), shape, shape)
+            decisions[dname] = dict(depth=m.last_depth, widths=list(m.last_widths), idx=idx.cpu())
+        same = all(decisions["cuda"][k] == decisions["cpu"][k] for k in ("depth", "widths"))
+        agree = float((decisions["cuda"]["idx"] == decisions["cpu"]["idx"])[masks[0][sel] > 0].float().mean())
+        run.update(card_decisions={k: decisions["cuda"][k] for k in ("depth", "widths")},
+                   cpu_decisions={k: decisions["cpu"][k] for k in ("depth", "widths")},
+                   decisions_agree=same, match_agreement=agree)
+        log(f"lightglue_adaptive {name}: {len(pairs)} pairs, depth {run['depth']}, widths {run['widths']}, "
+            f"attention launches {launches} at (BH x Kq x Kkv: calls) {run['shapes']}; 2 pairs: card "
+            f"{run['card_decisions']}, CPU {run['cpu_decisions']}, matches agree on {agree:.4%} of live keypoints")
+        if same and agree < 0.99:
+            raise AssertionError(f"adaptive LightGlue ({name}) on the card disagrees with the CPU")
+        runs[name] = run
+    dec = runs["decisive"]
+    if not (dec["depth"] < lightglue.NUM_LAYERS and min(dec["widths"]) < 2048 and dec["decisions_agree"]):
+        raise AssertionError(f"the decisive run did not exit early and prune on both devices: {dec}")
+    if not any(int(kq) != int(kkv) for kq, kkv in (k.split("x")[1:] for k in dec["shapes"])):
+        raise AssertionError("the decisive run launched no Kq != Kkv attention")
+    return runs
+
+
+def time_attention_shapes(attention, dev, shapes):
+    """The kernel at further shapes of the paths, each against its plain
+    version (max abs error, KERNEL_ATOL) and timed beside SDPA (the
+    yardstick) and the plain version, with its bound. Above 256 heads the
+    plain version and SDPA run 256 heads a call (the plain version's scores
+    for 2048 heads would be 34 GB), and their times are the sums."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = []
+    for name, bh, kq, kkv in shapes:
+        dh = 64
+        q, k, v = (torch.randn(bh, n, dh, device=dev, generator=gen) for n in (kq, kkv, kkv))
+        mask = (torch.rand(bh, kkv, device=dev, generator=gen) >= 0.1).float()
+        step = min(bh, 256)
+        blocks = [slice(s, s + step) for s in range(0, bh, step)]
+
+        def plain():
+            return [attention.reference_attention(q[b], k[b], v[b], mask[b]) for b in blocks]
+
+        def library():
+            return [sdpa(q[b], k[b], v[b], attn_mask=torch.where(mask[b] > 0, 0.0, attention.NEG)[:, None, :]
+                         .expand(-1, kq, kkv)) for b in blocks]
+
+        got = attention.flash_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        err = max(float((got[b] - w).abs().max()) for b, w in zip(blocks, plain()))
+        iters = 5 if bh > 256 else 20
+        kernel_runs, library_runs = [], []
+        for _ in range(2):
+            kernel_runs.append(time_ms(lambda: attention.flash_attention(q, k, v, mask), iters))
+            library_runs.append(time_ms(library, 3))
+        plain_ms = time_ms(plain, 3)
+        bound = attention_bound(bh, kq, kkv, dh)
+        ms = float(np.mean(kernel_runs))
+        row = dict(name=name, BH=bh, Kq=kq, Kkv=kkv, Dh=dh, max_abs_err=err, ms=ms, kernel_runs_ms=kernel_runs,
+                   plain_ms=plain_ms, library_ms=float(np.mean(library_runs)), library_runs_ms=library_runs,
+                   bound_ms=bound["bound_ms"], bound_by=bound["bound_by"], bound_kind=bound["bound_kind"])
+        log(f"attention shape {name}: BH={bh} Kq={kq} Kkv={kkv}: max_abs_err={err:.3e}; kernel {kernel_runs} ms, "
+            f"SDPA {library_runs} ms, plain {plain_ms:.3f} ms; bound {bound['bound_ms']:.4f} ms by "
+            f"{bound['bound_by']} ({bound['bound_kind']}), {bound['bound_ms'] / ms:.1%} of it")
+        if not err < KERNEL_ATOL:
+            raise AssertionError(f"attention kernel disagrees with its plain version at {name}: {err}")
+        out.append(row)
+        del q, k, v, mask, got
+        torch.cuda.empty_cache()
+    return out
 
 
 def _ray_cast(loader, index, uv):
@@ -663,6 +911,94 @@ def profile_back_end(opt, loader):
     return out
 
 
+# SuperGlue weights whose assignment follows descriptor similarity (there is
+# no checkpoint in the repository): the seeded network with the keypoint
+# encoder's last layer and every layer's mlp1 at SG_RESIDUAL_SCALE of their
+# seeded scale, so positions and attention perturb the descriptors without
+# drowning them, and final_proj = SG_PROJ_SCALE x identity, so the scores are
+# SG_PROJ_SCALE^2 / 16 x the cosine similarity. On the known-geometry
+# features (unit descriptors, 0.05 noise a component) a true match's cosine
+# is about 0.6 and a random pair's about N(0, 1/16): at scale 20 that is a
+# score of about 15 against under 6 for the best of 2048 random ones, so
+# Sinkhorn is sharp; SG_BIN_SCORE sends clutter to the dustbin.
+SG_RESIDUAL_SCALE = 0.01
+SG_PROJ_SCALE = 20.0
+SG_BIN_SCORE = 8.0
+
+
+def similarity_superglue_weights(seed: int = 0) -> dict:
+    """A SuperGlueNet state_dict (CPU) as described above."""
+    from gtsfm_tpu_torch.frontend.deep import superglue
+
+    sd = superglue.SuperGlue(device="cpu").init_random(seed).params
+    sd = {k: v.clone() for k, v in sd.items()}
+    sd["kenc.dense3.weight"] *= SG_RESIDUAL_SCALE
+    for i in range(superglue.NUM_GNN_LAYERS):
+        for kind in ("self", "cross"):
+            sd[f"{kind}{i}.mlp1.weight"] *= SG_RESIDUAL_SCALE
+    sd["final_proj.weight"] = SG_PROJ_SCALE * torch.eye(superglue.D_MODEL)
+    sd["final_proj.bias"] = torch.zeros(superglue.D_MODEL)
+    return sd
+
+
+def superglue_known(dev, num_images: int = 128, rows: int = 8, max_keypoints: int = 2048):
+    """SceneOptimizer.run with matcher_type="superglue" on the known-geometry
+    survey (back_end_known's synthetic features, responses 1) at the default
+    512-pair chunks, with similarity_superglue_weights: the port's SuperGlue
+    and the attention kernel at BH = 4 x 512 feed a real reconstruction.
+    Bars of back_end_known."""
+    from gtsfm_tpu_torch.loader.synthetic import SyntheticAerialLoader
+    from gtsfm_tpu_torch.ops import attention
+    from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
+
+    out_root = os.path.join(ROOT, "build", "chip_smoke_superglue_known")
+    loader = SyntheticAerialLoader(num_images=num_images, rows=rows)
+    cfg = known_scene_config(out_root)
+    cfg.frontend.max_keypoints = max_keypoints
+    cfg.frontend.matcher_type = "superglue"
+    opt = SceneOptimizer(cfg, device=dev)
+    opt.compute_features, _ = known_scene_features(loader, max_keypoints)
+    from gtsfm_tpu_torch.frontend.deep.superglue import SuperGlue
+
+    opt._matchers["superglue"] = SuperGlue(params={k: v.to(dev) for k, v in similarity_superglue_weights().items()},
+                                           bin_score=SG_BIN_SCORE, device=dev)
+    attention.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    result = opt.run(loader, save_outputs=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = attention.flash_attention.launches
+    groups = metric_groups(result)
+    rot = np.asarray(groups["ba_pose_error_metrics"]["rotation_angle_error_deg"])
+    out = dict(images=num_images, seconds=seconds, launches=launches,
+               pairs=groups["retriever_metrics"]["num_retrieved_image_pairs"],
+               verified_pairs=groups["two_view_metrics"]["num_verified_pairs"],
+               tracks=groups["data_association_metrics"]["num_tracks"], cameras=result.scene.num_cameras(),
+               rot_err_max_deg=float(rot.max()), rot_err_median_deg=float(np.median(rot)),
+               mean_reproj_px=float(result.scene.mean_reprojection_error()),
+               stage_seconds=dict(opt.stage_seconds),
+               stage_peak_gb={k: v / 1e9 for k, v in opt.stage_peak_bytes.items()})
+    log(f"superglue_known: {num_images} images, {out['pairs']} pairs, {out['verified_pairs']} verified, "
+        f"{out['tracks']} tracks; {out['cameras']} cameras, rotation error after Sim(3) max "
+        f"{out['rot_err_max_deg']:.4f} deg, median {out['rot_err_median_deg']:.4f} deg, mean reprojection "
+        f"{out['mean_reproj_px']:.4f} px; run {seconds:.2f} s; attention launches {launches}")
+    log(f"  stage seconds {json.dumps({k: round(v, 4) for k, v in out['stage_seconds'].items()})}; peak GB "
+        f"{json.dumps({k: round(v, 3) for k, v in out['stage_peak_gb'].items()})}")
+    if out["cameras"] < 0.95 * num_images:
+        raise AssertionError(f"only {out['cameras']}/{num_images} cameras in the final scene")
+    if not (out["rot_err_max_deg"] <= 1.0 and out["rot_err_median_deg"] <= 0.1):
+        raise AssertionError(f"rotation errors too large: {out['rot_err_max_deg']}, {out['rot_err_median_deg']}")
+    if not out["mean_reproj_px"] <= 1.0:
+        raise AssertionError(f"mean reprojection error {out['mean_reproj_px']} px > 1 px")
+    if dev.type == "cuda":
+        if launches < 36:
+            raise AssertionError(f"SuperGlue ran {launches} attention launches on the card, expected >= 36")
+        if max(out["stage_peak_gb"].values()) > 80.0:
+            raise AssertionError("superglue_known does not fit the 80 GB card")
+    return out
+
+
 CPU_CHECK_ROT_DEG = 0.01  # final rotations, card vs CPU (chordal, float64)
 CPU_CHECK_CENTRE = 1e-4  # final centres after the similarity, of the scene's extent
 
@@ -880,6 +1216,234 @@ def run_sift(dev, loader):
     return out
 
 
+GRIC_REL = 1e-3  # gric_F / gric_H, card vs CPU, relative
+
+
+def run_unified(dev, loader, sift_out):
+    """SceneOptimizer.run with the port's configs/unified.yaml (SIFT at 4096
+    keypoints with the GRIC degeneracy gate) on the survey's renders, as a
+    user runs it (output root, cache and plots changed). Logs the pairs the
+    gate passes of the 854 and the verified pairs beside run_sift's, then
+    GRIC on the first chunk's inputs on the card and on the CPU with the
+    same samples: prefer_fundamental identical, gric_F within GRIC_REL, and
+    gric_H within GRIC_REL on the pairs where both devices picked the same
+    homography (the others are counted and logged). Where the final scene holds >= 95% of the cameras, run_sift's
+    accuracy bars apply; otherwise the gate's record stands (it is the JAX
+    package's behaviour, held on 6 images by tests/test_torch_unified.py)."""
+    from gtsfm_tpu_torch.ops import ransac, verifiers
+    from gtsfm_tpu_torch.pipeline.config import PipelineConfig
+    from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
+
+    out_root = os.path.join(ROOT, "build", "chip_smoke_run_unified")
+    cfg = PipelineConfig().apply_yaml(os.path.join(ROOT, "gtsfm_tpu_torch", "configs", "unified.yaml"))
+    cfg.output_root, cfg.enable_cache, cfg.save_plots = out_root, False, False
+    opt = SceneOptimizer(cfg, device=dev)
+    calls = []
+    gric = verifiers.gric_select_batched
+
+    def recording_gric(generator, uv1, uv2, mask, F, **kw):
+        result = gric(generator, uv1, uv2, mask, F, **kw)
+        calls.append(dict(inputs=[t.detach().cpu() for t in (uv1, uv2, mask, F)], kw=kw,
+                          prefer=result.prefer_fundamental.cpu()))
+        return result
+
+    verifiers.gric_select_batched = recording_gric
+    try:
+        t0 = time.perf_counter()
+        result = opt.run(loader, save_outputs=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        verifiers.gric_select_batched = gric
+    groups = metric_groups(result)
+    n_pairs = groups["retriever_metrics"]["num_retrieved_image_pairs"]
+    chunk = cfg.two_view.chunk_size
+    prefer = torch.cat([c["prefer"][:min(chunk, n_pairs - i * chunk)] for i, c in enumerate(calls)])
+    rot = np.asarray(groups["ba_pose_error_metrics"]["rotation_angle_error_deg"])
+    out = dict(images=len(loader), seconds=seconds, pairs=n_pairs, gate_passes=int(prefer.sum()),
+               verified_pairs=groups["two_view_metrics"]["num_verified_pairs"],
+               run_sift_verified_pairs=sift_out["verified_pairs"],
+               tracks=groups["data_association_metrics"]["num_tracks"], cameras=result.scene.num_cameras(),
+               rot_err_max_deg=float(rot.max()) if rot.size else None,
+               rot_err_median_deg=float(np.median(rot)) if rot.size else None,
+               mean_reproj_px=float(result.scene.mean_reprojection_error()),
+               stage_seconds=dict(opt.stage_seconds),
+               stage_peak_gb={k: v / 1e9 for k, v in opt.stage_peak_bytes.items()})
+    log(f"run_unified: {out['images']} images, {n_pairs} pairs, GRIC prefers epipolar geometry on "
+        f"{out['gate_passes']}; verified {out['verified_pairs']} (run_sift: {out['run_sift_verified_pairs']}), "
+        f"{out['tracks']} tracks; {out['cameras']} cameras, rotation error after Sim(3) max "
+        f"{out['rot_err_max_deg']} deg, median {out['rot_err_median_deg']} deg, mean reprojection "
+        f"{out['mean_reproj_px']:.4f} px; run {seconds:.2f} s")
+    log(f"  stage seconds {json.dumps({k: round(v, 4) for k, v in out['stage_seconds'].items()})}; peak GB "
+        f"{json.dumps({k: round(v, 3) for k, v in out['stage_peak_gb'].items()})}")
+
+    # GRIC on the first chunk's inputs, card vs CPU, the same samples
+    first = calls[0]
+    samples = ransac._sample_minimal_sets(torch.Generator(device=dev).manual_seed(cfg.seed + 1),
+                                          first["inputs"][2].to(dev), 128, 4)
+    res = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        res[name] = verifiers.gric_select_batched(None, *(t.to(d) for t in first["inputs"]),
+                                                  samples=samples.to(d), **first["kw"])
+    same = bool(torch.equal(res["card"].prefer_fundamental.cpu(), res["cpu"].prefer_fundamental))
+    rel = {k: ((getattr(res["card"], k).cpu() - getattr(res["cpu"], k)).abs()
+               / getattr(res["cpu"], k).abs().clamp(min=1e-6)) for k in ("gric_F", "gric_H")}
+    # The homography is RANSAC's pick: where a float32 rounding moves a
+    # point across the threshold, the two devices can pick another sample.
+    # gric_H is held where both picked the same homography (up to scale).
+    unit = lambda H: (H / torch.linalg.vector_norm(H.reshape(-1, 9), dim=-1)[:, None, None]).reshape(-1, 9)  # noqa: E731
+    Hc, Hp = unit(res["card"].H.cpu()), unit(res["cpu"].H)
+    same_H = torch.minimum((Hc - Hp).abs().amax(-1), (Hc + Hp).abs().amax(-1)) < 1e-3
+    out.update(gric_card_vs_cpu=dict(
+        pairs=int(first["inputs"][0].shape[0]), prefer_identical=same, gric_F_rel=float(rel["gric_F"].max()),
+        same_homography=int(same_H.sum()), gric_H_rel_same_homography=float(rel["gric_H"][same_H].max()),
+        gric_H_rel_other=float(rel["gric_H"][~same_H].max()) if bool((~same_H).any()) else None))
+    log(f"  GRIC card vs CPU on {out['gric_card_vs_cpu']['pairs']} pairs, same samples: prefer_fundamental "
+        f"identical {same}; {json.dumps(out['gric_card_vs_cpu'])} (limit {GRIC_REL} on gric_F, and on gric_H "
+        f"where both devices picked the same homography)")
+    if not same or out["gric_card_vs_cpu"]["gric_F_rel"] > GRIC_REL or \
+            out["gric_card_vs_cpu"]["gric_H_rel_same_homography"] > GRIC_REL:
+        raise AssertionError("GRIC on the card disagrees with the CPU")
+    if out["cameras"] >= np.ceil(0.95 * len(loader)):
+        if not (out["rot_err_max_deg"] <= 1.0 and out["rot_err_median_deg"] <= 0.1 and out["mean_reproj_px"] <= 1.0):
+            raise AssertionError(f"run_unified misses run_sift's accuracy bars: {out}")
+    else:
+        log(f"  run_unified: the gate left {out['cameras']}/{len(loader)} cameras; recorded, as the JAX package does")
+    return out
+
+
+def verifiers_check(dev):
+    """The verifier zoo on known_pairs() (64 pairs, 1024 points, 0.5 px
+    noise, 30% outliers) on the card and on the CPU with shared samples
+    (drawn on the card): 8-point F RANSAC, LMedS E and F, DEGENSAC and GRIC.
+    Logs each one's inlier IoU card vs CPU and its geometry against the
+    truth: the median squared Sampson distance (px^2) of the true inliers
+    (within 2 px of the true epipolar geometry) and LMedS E's rotation
+    error (logged: the survey's terrain is close to a plane, where the
+    8-point E of LMedS is poorly conditioned). Bars: IoU >= 0.99 for each,
+    the same GRIC preference, and every method's median Sampson on the true
+    inliers <= 4 px^2 (2 px)."""
+    from gtsfm_tpu_torch.geometry import epipolar, lie
+    from gtsfm_tpu_torch.loader.synthetic import SyntheticAerialLoader
+    from gtsfm_tpu_torch.ops import ransac, verifiers
+
+    (x1, x2, R_gt, t_gt), f = known_pairs()
+    ref = SyntheticAerialLoader(num_images=48, rows=4)
+    c0 = np.array([ref._w / 2.0, ref._h / 2.0], np.float32)
+    P, N = x1.shape[:2]
+    host = {k: torch.as_tensor(v) for k, v in dict(x1=x1, x2=x2, uv1=x1 * f + c0, uv2=x2 * f + c0).items()}
+    host["mask"] = torch.ones(P, N)
+    E_gt = lie.hat(torch.as_tensor(t_gt)) @ torch.as_tensor(R_gt)
+    true_in = epipolar.sampson_distance_sq(E_gt, host["x1"], host["x2"]) * f**2 < 4.0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    on = lambda t: t.to(dev)  # noqa: E731
+    draw = lambda m, S, k: ransac._sample_minimal_sets(gen, on(m), S, k).cpu()  # noqa: E731
+    s8 = draw(host["mask"], 512, 8)
+    thr = 4.0  # px, the pipeline's estimation threshold
+    out, res = {}, {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t = {k: v.to(d) for k, v in host.items()}
+        r = {}
+        r["f_ransac"] = verifiers.verify_fundamental_batched(None, t["uv1"], t["uv2"], t["mask"], thr, samples=s8.to(d))
+        r["lmeds_e"] = verifiers.verify_essential_lmeds_batched(None, t["x1"], t["x2"], t["mask"], samples=s8.to(d))
+        r["lmeds_f"] = verifiers.verify_fundamental_lmeds_batched(None, t["uv1"], t["uv2"], t["mask"],
+                                                                  samples=s8.to(d))
+        res[name] = r
+    # DEGENSAC's H samples come from its F consensus (the card's), GRIC's from the mask
+    s4_h = draw(res["card"]["f_ransac"].inlier_mask, 128, 4)
+    s4 = draw(host["mask"], 128, 4)
+    F_card = res["card"]["f_ransac"].F.cpu()
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t = {k: v.to(d) for k, v in host.items()}
+        res[name]["degensac"] = verifiers.verify_fundamental_degensac_batched(
+            None, t["uv1"], t["uv2"], t["mask"], thr, samples=(s8.to(d), s4_h.to(d)))
+        res[name]["gric"] = verifiers.gric_select_batched(None, t["uv1"], t["uv2"], t["mask"], F_card.to(d),
+                                                          samples=s4.to(d))
+    for method in ("f_ransac", "lmeds_e", "lmeds_f", "degensac"):
+        a, b = (res[n][method].inlier_mask.cpu() > 0 for n in ("card", "cpu"))
+        iou = float(((a & b).sum(-1) / (a | b).sum(-1).clamp(min=1)).mean())
+        model = res["card"][method]
+        if method == "lmeds_e":
+            E = (lie.hat(model.i2Ui1) @ model.i2Ri1).cpu()
+            d_true = epipolar.sampson_distance_sq(E, host["x1"], host["x2"]) * f**2
+        else:
+            d_true = epipolar.sampson_distance_sq(model.F.cpu(), host["uv1"], host["uv2"])
+        med = float(torch.median(torch.stack([torch.median(d_true[p][true_in[p]]) for p in range(P)])))
+        out[method] = dict(iou=iou, success_card=int(model.success.sum()), median_sampson_px2_true_inliers=med)
+        if method == "lmeds_e":
+            rot = torch.rad2deg(lie.rotation_angular_distance(model.i2Ri1.cpu(), torch.as_tensor(R_gt))).numpy()
+            out[method].update(rot_err_median_deg=float(np.median(rot)), rot_err_max_deg=float(rot.max()))
+    g = {n: res[n]["gric"] for n in ("card", "cpu")}
+    out["gric"] = dict(prefer_identical=bool(torch.equal(g["card"].prefer_fundamental.cpu(),
+                                                         g["cpu"].prefer_fundamental)),
+                       prefer_fundamental=int(g["card"].prefer_fundamental.sum()),
+                       gric_F_rel=float(((g["card"].gric_F.cpu() - g["cpu"].gric_F).abs() / g["cpu"].gric_F.abs()).max()),
+                       gric_H_rel=float(((g["card"].gric_H.cpu() - g["cpu"].gric_H).abs() / g["cpu"].gric_H.abs()).max()))
+    log(f"verifiers_check: {P} pairs x {N} points, 30% outliers, card vs CPU with shared samples: "
+        f"{json.dumps(out)}")
+    bad = [m for m in ("f_ransac", "lmeds_e", "lmeds_f", "degensac")
+           if out[m]["iou"] < 0.99 or out[m]["median_sampson_px2_true_inliers"] > 4.0]
+    if bad or not out["gric"]["prefer_identical"]:
+        raise AssertionError(f"verifiers on the card disagree with the CPU or miss the truth: {bad}, {out['gric']}")
+    return out
+
+
+RETRIEVAL_DESC_REL = 1e-4  # NetVLAD descriptors, card vs CPU, relative to the largest component
+
+
+def retrieval(dev, loader):
+    """NetVLAD (seeded weights) and the retrieval regimes on the survey's
+    renders: SceneOptimizer.generate_pairs with the retrieval and the
+    sequential_with_retrieval regimes on the card (seconds per image), the
+    descriptors of 4 images on the card against the CPU (relative
+    RETRIEVAL_DESC_REL), and the top-K pair sets on the card against the
+    CPU's from the same descriptors (pairs that differ must be ties in
+    score)."""
+    from gtsfm_tpu_torch.frontend.deep.netvlad import NetVLAD
+    from gtsfm_tpu_torch.pipeline.config import PipelineConfig
+    from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
+    from gtsfm_tpu_torch.retriever import similarity
+
+    out = {}
+    for regime in ("retrieval", "sequential_with_retrieval"):
+        cfg = PipelineConfig()
+        cfg.retriever.regime, cfg.retriever.allow_random_weights = regime, True
+        opt = SceneOptimizer(cfg, device=dev)
+        t0 = time.perf_counter()
+        pairs = opt.generate_pairs(loader)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        out[regime] = dict(pairs=len(pairs), seconds=seconds, seconds_per_image=seconds / len(loader))
+    def rgb(i):  # as SceneOptimizer._retrieval_pairs prepares an image
+        a = np.asarray(loader.get_image(i)[0].value_array, np.float32) / 255.0
+        return (np.stack([a] * 3, -1) if a.ndim == 2 else a)[None]
+
+    card = NetVLAD(device=dev).init_random()
+    cpu = NetVLAD(params={k: v.cpu() for k, v in card.params.items()}, device="cpu")
+    descs = torch.cat([card(rgb(i)) for i in range(len(loader))])
+    ref = torch.cat([cpu(rgb(i)) for i in range(4)])
+    desc_rel = float((descs[:4].cpu() - ref).abs().max() / ref.abs().max())
+    cfg = PipelineConfig().retriever
+    sets = {name: similarity.retrieve_pairs_topk(d, cfg.num_matched, cfg.min_score)
+            for name, d in (("card", descs), ("cpu", descs.cpu()))}
+    sim = similarity.similarity_matrix(descs.cpu())
+    np.fill_diagonal(sim, -np.inf)
+    kth = np.sort(sim, axis=1)[:, -cfg.num_matched]  # each query's K-th best score
+    differ = sorted(set(sets["card"]) ^ set(sets["cpu"]))
+    ties = all(min(abs(sim[a, b] - kth[a]), abs(sim[a, b] - kth[b])) <= 1e-6 for a, b in differ)
+    window = similarity.union_with_window(sets["card"], len(loader), cfg.max_frame_lookahead)
+    out.update(images=len(loader), desc_max_rel_err=desc_rel, topk_pairs=len(sets["card"]),
+               pairs_differ=len(differ), differ_are_ties=ties, union_pairs=len(window))
+    log(f"retrieval: {len(loader)} images; generate_pairs {json.dumps(out['retrieval'])} (retrieval), "
+        f"{json.dumps(out['sequential_with_retrieval'])} (sequential_with_retrieval); NetVLAD card vs CPU on 4 "
+        f"images: max relative difference {desc_rel:.2e} (limit {RETRIEVAL_DESC_REL}); top-{cfg.num_matched} "
+        f"pairs above {cfg.min_score}: {len(sets['card'])} on the card, {len(differ)} differ from the CPU's "
+        f"(ties: {ties}); with the window: {len(window)}")
+    if desc_rel > RETRIEVAL_DESC_REL or not ties:
+        raise AssertionError("retrieval on the card disagrees with the CPU")
+    return out
+
+
 SIFT_CPU_UV_PX = 0.01  # a card keypoint corresponds to a CPU keypoint this close
 SIFT_CPU_DESC = 1e-4  # max abs descriptor difference on corresponding keypoints
 SIFT_CPU_RECALL = 0.99
@@ -1008,14 +1572,27 @@ def main() -> int:
     profile = phase("profile_two_view", profile_warm, slice_out)
     checks = phase("attention_checks", check_attention_kernel, attention, dev, slice_out["path_shape"])
     cross = phase("lightglue_cpu_check", cross_check_cpu, slice_out, dev)
+    sg_check = phase("superglue_cpu_check", superglue_cpu_check, dev, slice_out)
+    adaptive = phase("lightglue_adaptive", lightglue_adaptive, dev, slice_out)
     geo = phase("known_geometry", known_geometry, dev, slice_out["cfg"])
+    zoo = phase("verifiers_check", verifiers_check, dev)
     deep = phase("run_deep", run_deep, dev)
     known = phase("back_end_known", back_end_known, dev)
+    sg_known = phase("superglue_known", superglue_known, dev)
     cpu_check = phase("back_end_cpu_check", back_end_cpu_check, dev)
     survey = phase("render_survey", survey_loader, 128, 8)
     sift_run = phase("run_sift", run_sift, dev, survey)
+    unified = phase("run_unified", run_unified, dev, survey, sift_run)
+    retrieved = phase("retrieval", retrieval, dev, survey)
     sift_check = phase("sift_cpu_check", sift_cpu_check, dev, survey)
     cli = phase("runner_cli", runner_cli)
+    # the kernel at the new paths' shapes: SuperGlue's 512-pair chunk, and
+    # two Kq != Kkv shapes the decisive adaptive LightGlue run launched
+    pruned = sorted({tuple(int(x) for x in k.split("x")) for k in adaptive["decisive"]["shapes"]
+                     if len(set(k.split("x")[1:])) == 2}, key=lambda s: -s[1] * s[2])[:2]
+    extra = phase("attention_shapes", time_attention_shapes, attention, dev,
+                  [("superglue_chunk", 2048, 2048, 2048)] + [(f"lightglue_pruned_{kq}x{kkv}", bh, kq, kkv)
+                                                               for bh, kq, kkv in pruned])
 
     path = checks["path"]
     kernels = [{
@@ -1026,8 +1603,10 @@ def main() -> int:
         # the main path: SceneOptimizer.run (run_deep); run_two_view's own
         # count is under launches_by_path
         "launches": deep["launches"],
-        "launches_by_path": {"run": deep["launches"], "run_two_view": slice_out["launches"]},
-        "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+        "launches_by_path": {"run": deep["launches"], "run_two_view": slice_out["launches"],
+                             "superglue_cpu_check": sg_check["launches"], "superglue_known": sg_known["launches"],
+                             "lightglue_adaptive": {k: v["launches"] for k, v in adaptive.items()}},
+        "max_abs_err": max([c["max_abs_err"] for c in checks.values()] + [e["max_abs_err"] for e in extra]),
         "ms": path["ms"],
         "plain_ms": path["plain_ms"],
         "bound_ms": path["bound_ms"],
@@ -1038,13 +1617,16 @@ def main() -> int:
         "f32_bound_ms": path["f32_bound_ms"],
         "tf32_bound_ms": path["tf32_bound_ms"],
         "sass": sass,
+        "extra_shapes": extra,
     }]
     log(json.dumps({"slice": {k: slice_out[k] for k in ("pairs_count", "keypoints", "matches", "verified",
                                                           "stages", "launches")},
                     "profile": profile, "cross_check": cross, "known_geometry": geo,
                     "checks": checks, "run_deep": deep, "back_end_known": known,
                     "back_end_cpu_check": cpu_check, "run_sift": sift_run, "sift_cpu_check": sift_check,
-                    "runner_cli": cli, "phase_seconds": phase_s}, default=float))
+                    "runner_cli": cli, "superglue_cpu_check": sg_check, "lightglue_adaptive": adaptive,
+                    "verifiers_check": zoo, "superglue_known": sg_known, "run_unified": unified,
+                    "retrieval": retrieved, "phase_seconds": phase_s}, default=float))
     log(f"{smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def flax_to_state_dict(params, keep: set[str] | None = None) -> dict[str, torch.Tensor]:
@@ -43,3 +44,11 @@ def flax_to_state_dict(params, keep: set[str] | None = None) -> dict[str, torch.
             raise KeyError(f"Flax params lack {sorted(missing)[:8]}")
         out = {k: v for k, v in out.items() if k in keep}
     return out
+
+
+def lecun_normal_(w: torch.Tensor, gen: torch.Generator) -> None:
+    """Flax's default Dense and Conv kernel init, in place: a truncated
+    normal of variance 1 / fan_in (fan_in = the product of every axis of the
+    torch weight but the first)."""
+    std = (1.0 / int(np.prod(w.shape[1:]))) ** 0.5 / 0.87962566103423978
+    nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)

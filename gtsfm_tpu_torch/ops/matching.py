@@ -73,3 +73,17 @@ def matches_to_correspondences(match_idx, match_mask, kpts1, kpts2):
     x2 = torch.gather(kpts2, 1, idx[..., None].expand(idx.shape + (kpts2.shape[-1],)))
     m = match_mask[..., None]
     return kpts1 * m, x2 * m, match_mask
+
+
+def mutual_max_matches(log_p, mask0, mask1, match_threshold: float):
+    """The deep matchers' extraction: mutual argmax of a (B, K0, K1) log
+    assignment whose probability exceeds ``match_threshold``, between live
+    keypoints. Returns (match_idx (B, K0) int32, -1 = unmatched;
+    match_mask (B, K0) float32)."""
+    best12 = torch.argmax(log_p, dim=2)  # first maximum, as jnp.argmax
+    best21 = torch.argmax(log_p, dim=1)
+    k_ids = torch.arange(log_p.shape[1], device=log_p.device)[None, :]
+    mutual = torch.gather(best21, 1, best12) == k_ids
+    score = torch.exp(torch.gather(log_p, 2, best12[..., None])[..., 0])
+    ok = mutual & (score > match_threshold) & (mask0 > 0) & (torch.gather(mask1, 1, best12) > 0)
+    return torch.where(ok, best12, torch.full_like(best12, -1)).to(torch.int32), ok.to(torch.float32)

@@ -29,7 +29,6 @@ import torch
 
 from gtsfm_tpu_torch.common.topk import topk_lowest_index
 from gtsfm_tpu_torch.geometry import epipolar, fivepoint
-from gtsfm_tpu_torch.ops.verifiers import homography_from_four_point
 
 
 class TwoViewResult(NamedTuple):
@@ -180,6 +179,8 @@ def verify_essential_batched(
     # Homography-decomposition hypotheses, 2 per 4-point sample: a 4-point H
     # fit stays well-conditioned on low-parallax pairs where noise degrades
     # the polynomial solve.
+    from gtsfm_tpu_torch.ops.verifiers import homography_from_four_point
+
     H_h = homography_from_four_point(_take(x1, idx4), _take(x2, idx4))
     E_H = epipolar.essentials_from_homography(H_h).reshape(P, 2 * SH, 3, 3)
 

@@ -36,7 +36,7 @@ class FrontendConfig:
     # card until its multi-GPU slice.
     detect_sharded: bool | None = None
     # LightGlue adaptivity (upstream defaults 0.95 / 0.99; None disables and
-    # runs the full static depth — the only mode this slice ports).
+    # runs the full static depth).
     lightglue_depth_confidence: float | None = None
     lightglue_width_confidence: float | None = None
 
@@ -82,8 +82,8 @@ class MultiViewConfig:
 
 @dataclasses.dataclass
 class RetrieverConfig:
-    # exhaustive | sequential | retrieval | sequential_with_retrieval
-    # (reference ImageMatchingRegime, retriever_base.py)
+    # exhaustive | sequential | retrieval | sequential_with_retrieval |
+    # sequential_hilti (reference ImageMatchingRegime, retriever_base.py)
     regime: str = "exhaustive"
     max_frame_lookahead: int = 10
     num_matched: int = 5

@@ -5,12 +5,14 @@ Port of gtsfm_tpu/pipeline/scene_optimizer.py (the reference's SceneOptimizer
 gtsfm/multi_view_optimizer.py:29, and the runner loop,
 runner/gtsfm_runner_base.py:275-413). ``run(loader)`` goes through:
 
-  1. retrieval -> pair list (exhaustive or sequential window);
+  1. retrieval -> pair list (exhaustive, sequential window, rig window, or
+     NetVLAD similarity with or without the window);
   2. features (SIFT or SuperPoint) for every image, batched per image shape
      and cached by content hash;
-  3. batched matching (LightGlue, or mutual nearest neighbour) and batched
-     RANSAC two-view estimation plus two-view BA, in fixed-size chunks of
-     pairs (cached by the two-view cache);
+  3. batched matching (LightGlue, SuperGlue, or mutual nearest neighbour)
+     and batched RANSAC two-view estimation, the optional GRIC degeneracy
+     gate and two-view BA, in fixed-size chunks of pairs (cached by the
+     two-view cache);
   4. cycle-consistency view-graph filter and largest connected component;
   5. rotation averaging (certifiable staircase);
   6. tracks (union-find) -> 1dSFM translation averaging;
@@ -21,9 +23,9 @@ runner/gtsfm_runner_base.py:275-413). ``run(loader)`` goes through:
      and the web viewer.
 
 Runs on one device, ``"cuda"`` unless the caller asks otherwise. Other
-detectors and matchers, the GRIC gate, fisheye and rig loaders, pose priors,
-distributed BA and densification are later slices (ROADMAP queue 1) and
-raise NotImplementedError.
+detectors, fisheye and rig loaders, pose priors, distributed BA and
+densification are later slices (ROADMAP queue 1) and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -57,7 +59,7 @@ from gtsfm_tpu_torch.multiview import translation_averaging as ta
 from gtsfm_tpu_torch.multiview import viewgraph
 from gtsfm_tpu_torch.ops import matching, ransac
 from gtsfm_tpu_torch.pipeline.config import PipelineConfig
-from gtsfm_tpu_torch.retriever import exhaustive_pairs, sequential_pairs
+from gtsfm_tpu_torch.retriever import exhaustive_pairs, sequential_hilti_pairs, sequential_pairs
 
 logger = logging.getLogger("gtsfm_tpu_torch")
 
@@ -77,7 +79,7 @@ class SceneOptimizer:
                  device: str | torch.device = "cuda"):
         self.config = config or PipelineConfig()
         self.device = resolve_device(device)
-        self._matcher = None
+        self._matchers: dict = {}  # deep matchers by type, built once
         # Wall seconds per stage of the last run() (device-synchronized).
         self.stage_seconds: dict[str, float] = {}
         # Peak device bytes allocated per stage of the last run(), and per
@@ -92,12 +94,46 @@ class SceneOptimizer:
         n = len(loader)
         if cfg.regime == "exhaustive":
             pairs = exhaustive_pairs(n)
-        elif cfg.regime == "sequential":
-            pairs = sequential_pairs(n, cfg.max_frame_lookahead)
+        elif cfg.regime in ("retrieval", "sequential_with_retrieval"):
+            pairs = self._retrieval_pairs(loader)
+        elif cfg.regime == "sequential_hilti":
+            # Rig sliding window over FOV-overlapping camera combinations;
+            # max_frame_lookahead counts rig stations here.
+            pairs = sequential_hilti_pairs(n, max_rig_lookahead=min(cfg.max_frame_lookahead, 3))
         else:
-            raise NotImplementedError(
-                f"retriever regime {cfg.regime!r} " + _NOT_PORTED.format("'retrieval'"))
+            pairs = sequential_pairs(n, cfg.max_frame_lookahead)
         return [p for p in pairs if loader.is_valid_pair(*p)]
+
+    def _retrieval_pairs(self, loader: LoaderBase) -> list[tuple[int, int]]:
+        """NetVLAD global-descriptor retrieval (reference ImagePairsGenerator
+        + NetVLADRetriever / JointNetVLADSequentialRetriever): one descriptor
+        per image, top-K per query above min_score from blocked cosine
+        similarity on the device; the joint regime unions the sliding window
+        in."""
+        from gtsfm_tpu_torch.frontend.deep.netvlad import NetVLAD
+        from gtsfm_tpu_torch.retriever import similarity
+
+        cfg = self.config.retriever
+        model = NetVLAD(checkpoint_path=cfg.netvlad_checkpoint, device=self.device)
+        if model.params is None:
+            if not cfg.allow_random_weights:
+                raise ValueError("retrieval regime needs retriever.netvlad_checkpoint "
+                                 "(or allow_random_weights for tests)")
+            model.init_random()
+        descs = []
+        with record_function("retrieval/netvlad"):
+            for i in range(len(loader)):
+                img, _ = loader.get_image(i)
+                rgb = np.asarray(img.value_array, np.float32)
+                if rgb.max() > 1.5:
+                    rgb = rgb / 255.0
+                if rgb.ndim == 2:
+                    rgb = np.stack([rgb] * 3, -1)
+                descs.append(model(rgb[None])[0])
+        pairs = similarity.retrieve_pairs_topk(torch.stack(descs), cfg.num_matched, cfg.min_score)
+        if cfg.regime == "sequential_with_retrieval":
+            return similarity.union_with_window(pairs, len(loader), cfg.max_frame_lookahead)
+        return pairs
 
     def _make_detector(self):
         """Returns detect(gray images (B, H, W)) -> batched features with
@@ -181,33 +217,41 @@ class SceneOptimizer:
             logger.info("features: %d images at shape %s done", len(idxs), shape)
         return feats, np.stack(cals), sizes
 
-    def _lightglue(self):
-        """The LightGlue matcher, built once per optimizer."""
-        if self._matcher is None:
-            fe = self.config.frontend
-            from gtsfm_tpu_torch.frontend.deep import lightglue as lg_mod
-
-            lg = lg_mod.LightGlue(checkpoint_path=fe.lightglue_checkpoint,
-                                  depth_confidence=fe.lightglue_depth_confidence,
-                                  width_confidence=fe.lightglue_width_confidence,
-                                  device=self.device)
-            if lg.params is None:
-                if not fe.allow_random_weights:
-                    raise ValueError("lightglue requires a checkpoint or allow_random_weights")
-                lg.init_random()
-            self._matcher = lg
-        return self._matcher
-
-    def _deep_match(self, feats, pairs, d1, d2, k1, k2, m1, m2):
-        """Batched LightGlue matching of superpoint features."""
+    def _deep_matcher(self):
+        """The configured deep matcher (LightGlue or SuperGlue), built once
+        per optimizer."""
         fe = self.config.frontend
-        if fe.matcher_type != "lightglue":
-            raise NotImplementedError(
-                f"matcher_type {fe.matcher_type!r} " + _NOT_PORTED.format("'SuperGlue'"))
-        # The matcher only uses the image shape to normalize keypoints, so
+        if fe.matcher_type not in self._matchers:
+            if fe.matcher_type == "superglue":
+                from gtsfm_tpu_torch.frontend.deep import superglue as sg_mod
+
+                m = sg_mod.SuperGlue(checkpoint_path=fe.superglue_checkpoint, device=self.device)
+            elif fe.matcher_type == "lightglue":
+                from gtsfm_tpu_torch.frontend.deep import lightglue as lg_mod
+
+                m = lg_mod.LightGlue(checkpoint_path=fe.lightglue_checkpoint,
+                                     depth_confidence=fe.lightglue_depth_confidence,
+                                     width_confidence=fe.lightglue_width_confidence,
+                                     device=self.device)
+            else:
+                raise ValueError(f"unknown matcher_type {fe.matcher_type}")
+            if m.params is None:
+                if not fe.allow_random_weights:
+                    raise ValueError(f"{fe.matcher_type} requires a checkpoint or allow_random_weights")
+                m.init_random()
+            self._matchers[fe.matcher_type] = m
+        return self._matchers[fe.matcher_type]
+
+    def _deep_match(self, d1, d2, k1, k2, s1, s2, m1, m2):
+        """Batched SuperGlue or LightGlue matching of superpoint features
+        (s1, s2: keypoint responses, which SuperGlue's encoder reads)."""
+        # The matchers only use the image shape to normalize keypoints, so
         # the max_resolution bound is adequate (as in the JAX package).
         shape = (self.config.max_resolution, self.config.max_resolution)
-        return self._lightglue()(d1, d2, k1, k2, m1, m2, shape, shape)
+        matcher = self._deep_matcher()
+        if self.config.frontend.matcher_type == "superglue":
+            return matcher(d1, d2, k1, k2, s1, s2, m1, m2, shape, shape)
+        return matcher(d1, d2, k1, k2, m1, m2, shape, shape)
 
     def run_two_view(self, feats, cals, pairs, return_stages: bool = False):
         """Batched matching + batched RANSAC + two-view BA over all pairs.
@@ -226,15 +270,15 @@ class SceneOptimizer:
         up = lambda arrs: torch.as_tensor(np.stack([np.asarray(a) for a in arrs]),  # noqa: E731
                                           dtype=torch.float32).to(self.device)
         stacks = dict(desc=up([f.descriptor for f in feats]), mask=up([f.mask for f in feats]),
-                      uv=up([f.uv for f in feats]), cal=up(cals))
+                      uv=up([f.uv for f in feats]), response=up([f.response for f in feats]), cal=up(cals))
         if len(pairs) <= chunk:
-            return self._run_two_view_chunk(feats, pairs, stacks, return_stages)
+            return self._run_two_view_chunk(pairs, stacks, return_stages)
         results, idxs, stage_parts = [], [], {}
         for s in range(0, len(pairs), chunk):
             sub = list(pairs[s:s + chunk])
             n_real = len(sub)
             sub += [sub[-1]] * (chunk - n_real)
-            out = self._run_two_view_chunk(feats, sub, stacks, return_stages)
+            out = self._run_two_view_chunk(sub, stacks, return_stages)
             results.append(_trim(out[0], n_real))
             idxs.append(out[1][:n_real])
             if return_stages:
@@ -246,11 +290,9 @@ class SceneOptimizer:
             return res, match_idx, {tag: _concat(parts) for tag, parts in stage_parts.items()}
         return res, match_idx
 
-    def _run_two_view_chunk(self, feats, pairs, stacks, return_stages: bool = False):
+    def _run_two_view_chunk(self, pairs, stacks, return_stages: bool = False):
         fe = self.config.frontend
         tv = self.config.two_view
-        if tv.degeneracy_check:
-            raise NotImplementedError("two_view.degeneracy_check (GRIC) " + _NOT_PORTED.format("'verifiers'"))
         dev = self.device
         # On-device gather of the chunk's pairs from the per-image stacks.
         pa = torch.as_tensor([a for a, _ in pairs], device=dev)
@@ -268,7 +310,7 @@ class SceneOptimizer:
             if fe.matcher_type == "mutual_nn":
                 idx, mm = matching.mutual_nearest_matching(d1, d2, m1, m2, ratio_test=fe.ratio_test)
             else:
-                idx, mm = self._deep_match(feats, pairs, d1, d2, k1, k2, m1, m2)
+                idx, mm = self._deep_match(d1, d2, k1, k2, stack("response", 0), stack("response", 1), m1, m2)
             x1, x2, cm = matching.matches_to_correspondences(idx, mm, k1, k2)
         self._span_peak("two_view/match")
 
@@ -286,6 +328,21 @@ class SceneOptimizer:
                 min_inlier_ratio=tv.min_inlier_ratio,
             )
         self._span_peak("two_view/ransac")
+        if tv.degeneracy_check:
+            # GRIC H-vs-E selection on normalized coordinates (E acts as the
+            # F of the normalized camera; sigma scales by the mean focal).
+            from gtsfm_tpu_torch.geometry import lie
+            from gtsfm_tpu_torch.ops import verifiers
+
+            with record_function("two_view/gric"):
+                g = verifiers.gric_select_batched(
+                    torch.Generator(device=dev).manual_seed(self.config.seed + 1), x1n, x2n, cm,
+                    lie.hat(res.i2Ui1) @ res.i2Ri1,
+                    sigma_px=float(tv.gric_sigma_px) / float(torch.mean(f_mean)),
+                )
+                res = res._replace(success=res.success & g.prefer_fundamental)
+            self._span_peak("two_view/gric")
+            logger.info("GRIC degeneracy gate: %d/%d pairs kept", int(torch.sum(res.success)), len(pairs))
         stages = {"PRE_BA": res}
         if tv.ba_enabled:
             from gtsfm_tpu_torch.twoview import estimator as tv_est

@@ -1,8 +1,9 @@
-"""Image-pair retrieval (reference gtsfm/retriever/): sequential window and
-exhaustive regimes."""
+"""Image-pair retrieval (reference gtsfm/retriever/): sequential window,
+exhaustive, rig window and similarity-based (NetVLAD) regimes."""
 
 from gtsfm_tpu_torch.retriever.basic import (  # noqa: F401
     ImageMatchingRegime,
     exhaustive_pairs,
+    sequential_hilti_pairs,
     sequential_pairs,
 )

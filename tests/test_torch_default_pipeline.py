@@ -13,11 +13,13 @@ two-view stage's chunked on-device pair gather (the matches of per-pair
 stacks).
 """
 
+import gc
 import copy
 import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,6 +38,17 @@ from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
 from gtsfm_tpu_torch.visualization import web_viewer
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_executables():
+    """XLA:CPU keeps the JIT code of every compiled program mapped for the
+    life of the process; the test workers run many files each, so the
+    programs this file compiled are dropped when it ends."""
+    yield
+    jax.clear_caches()
+    gc.collect()
+
 
 NUM_IMAGES, ROWS, K = 6, 2, 1024
 ROT_TOL_DEG = 0.5

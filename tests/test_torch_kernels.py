@@ -49,7 +49,10 @@ def _inputs(seed, BH, Kq, Kkv, Dh, masked, dev, qk_scale=1.0):
      # head dims off the main path at its length, and Kq below one query tile
      (4, 2048, 2048, 32, True), (4, 2048, 2048, 128, True), (4, 5, 777, 64, True),
      # ragged Kkv one past a kv tile (64 keys; 32 for Dh 128)
-     (4, 100, 65, 64, True), (4, 100, 129, 128, True), (4, 33, 65, 32, False)],
+     (4, 100, 65, 64, True), (4, 100, 129, 128, True), (4, 33, 65, 32, False),
+     # adaptive LightGlue's cross-attention after pruning (tokens compacted
+     # to multiples of 128, never below 512): Kq != Kkv both ways
+     (8, 640, 2048, 64, True), (8, 2048, 512, 64, True), (8, 1152, 512, 64, True)],
 )
 def test_flash_attention_matches_plain(cuda, BH, Kq, Kkv, Dh, masked):
     q, k, v, mask = _inputs(0, BH, Kq, Kkv, Dh, masked, cuda)
@@ -59,6 +62,21 @@ def test_flash_attention_matches_plain(cuda, BH, Kq, Kkv, Dh, masked):
     assert attention.flash_attention.launches == before + 1
     want = attention.reference_attention(q, k, v, mask)
     assert float((got - want).abs().max()) < CUDA_ATOL
+
+
+@pytest.mark.gpu
+def test_flash_attention_superglue_chunk_shape(cuda):
+    """SuperGlue's shape at a 512-pair chunk: BH = 2048, K = 2048, Dh 64,
+    held against the plain version 128 heads at a time (the plain version's
+    score matrix for all 2048 heads would be 34 GB)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn(2048, 2048, 64, device=cuda, generator=gen) for _ in range(3))
+    mask = (torch.rand(2048, 2048, device=cuda, generator=gen) >= 0.1).float()
+    got = attention.flash_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    err = max(float((got[s:s + 128] - attention.reference_attention(
+        q[s:s + 128], k[s:s + 128], v[s:s + 128], mask[s:s + 128])).abs().max()) for s in range(0, 2048, 128))
+    assert err < CUDA_ATOL
 
 
 @pytest.mark.gpu

@@ -15,6 +15,7 @@ packages draw their RANSAC samples from different generators, so success is
 compared as a flag per pair, not pose for pose.
 """
 
+import gc
 import os
 import sys
 
@@ -23,10 +24,11 @@ import pytest
 import torch
 
 from gtsfm_tpu.frontend.deep import lightglue as jax_lightglue
+from gtsfm_tpu.frontend.deep import superglue as jax_superglue
 from gtsfm_tpu.loader.synthetic import SyntheticAerialLoader as JaxLoader
 from gtsfm_tpu.pipeline.config import PipelineConfig as JaxConfig
 from gtsfm_tpu.pipeline.scene_optimizer import SceneOptimizer as JaxOptimizer
-from gtsfm_tpu_torch.frontend.deep import lightglue
+from gtsfm_tpu_torch.frontend.deep import lightglue, superglue
 from gtsfm_tpu_torch.loader.synthetic import SyntheticAerialLoader
 from gtsfm_tpu_torch.ops.attention import flash_attention
 from gtsfm_tpu_torch.pipeline.config import PipelineConfig
@@ -36,6 +38,19 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "frontend"))
 import golden_utils  # noqa: E402
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _release_jax_executables():
+    """XLA:CPU keeps the JIT code of every compiled program mapped for the
+    life of the process; the test workers run many files each, so the
+    programs this file compiled are dropped when it ends."""
+    yield
+    import jax
+
+    jax.clear_caches()
+    gc.collect()
+
 
 LOADER = dict(num_images=4, height=96, width=128, rows=2)
 
@@ -127,10 +142,29 @@ def test_unported_options_raise(checkpoints, tmp_path):
     cfg.frontend.feature_type = "orb"  # SIFT and SuperPoint are ported; the other front ends not yet
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'other front ends'"):
         SceneOptimizer(cfg, device="cpu").compute_features(SyntheticAerialLoader(**LOADER))
-    cfg = _configure(PipelineConfig(), checkpoints, tmp_path)
-    cfg.frontend.matcher_type = "superglue"
-    opt = SceneOptimizer(cfg, device="cpu")
-    loader = SyntheticAerialLoader(**LOADER)
-    feats, cals, _ = opt.compute_features(loader)
-    with pytest.raises(NotImplementedError, match="SuperGlue"):
-        opt.run_two_view(feats, cals, opt.generate_pairs(loader))
+
+
+def test_superglue_run_two_view_parity(both, checkpoints, tmp_path, monkeypatch):
+    """matcher_type="superglue" through both packages' run_two_view on the
+    JAX package's SuperPoint features, one upstream-layout SuperGlue
+    checkpoint (random, so both match at threshold 0, keeping every mutual
+    best match): the same match_idx, slot for slot, and the same verified
+    pairs."""
+    for cls in (jax_superglue.SuperGlue, superglue.SuperGlue):
+        defaults = list(cls.__init__.__defaults__)
+        defaults[2] = 0.0  # match_threshold (after params, bin_score)
+        monkeypatch.setattr(cls.__init__, "__defaults__", tuple(defaults))
+    sg_path = str(tmp_path / "sg.pth")
+    golden_utils.build_superglue(sg_path)
+    feats, cals, pairs = both["jax"]["feats"], both["jax"]["cals"], both["jax"]["pairs"]
+    out = {}
+    for name, opt in (("jax", JaxOptimizer(_configure(JaxConfig(compile_cache=False), checkpoints, tmp_path / "j"))),
+                      ("port", SceneOptimizer(_configure(PipelineConfig(), checkpoints, tmp_path / "p"), device="cpu"))):
+        opt.config.frontend.matcher_type = "superglue"
+        opt.config.frontend.superglue_checkpoint = sg_path
+        res, match_idx = opt.run_two_view(feats, cals, pairs)
+        out[name] = (np.asarray(match_idx), np.asarray(res.success))
+    assert out["port"][0].shape == (len(pairs), 64)
+    np.testing.assert_array_equal(out["port"][0], out["jax"][0])
+    assert (out["port"][0] >= 0).sum() >= 20
+    np.testing.assert_array_equal(out["port"][1], out["jax"][1])

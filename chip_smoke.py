@@ -26,8 +26,14 @@ pixels: the port's SIFT preset (4096 keypoints, mutual-NN at ratio 0.8,
 512-pair chunks) on the 128-image survey's renders, cold, warm and profiled
 (run_sift: cameras, rotation error after Sim(3), reprojection error, stage
 seconds and peak memory, every output file), SIFT and mutual-NN on the card
-against the CPU (sift_cpu_check), and the runner CLI on a 12-image Olsson
-folder (runner_cli). Each phase logs its seconds. Any failure raises and the
+against the CPU (sift_cpu_check). Then the other front ends: KAZE, ORB,
+BRISK, FAST and Harris on the card against the CPU with match_hamming
+(classical_cpu_check), SceneOptimizer.run with KAZE, ORB and BRISK on the
+survey's renders (run_kaze, run_orb, run_brisk), D2-Net and DISK with
+seeded weights on the deep cell (deep_detectors), LoFTR's detector-free path
+on the deep cell and on the survey's 854 pairs at full width (loftr), and the
+runner CLI on a 12-image Olsson folder, also with ORB (runner_cli). Each
+phase logs its seconds. Any failure raises and the
 exit code is non-zero. The last two lines of standard output
 are a JSON line of per-kernel numbers and the result line
 {"ok": true, "device": {...}}. Without a card it exits non-zero and prints
@@ -105,20 +111,25 @@ def check_attention_kernel(attention, dev, path_shape):
     """Kernel vs plain version on the card at the main path's shape, a
     ragged Kq != Kkv shape, fully masked rows, the other head dims at the
     path's length, Kq below one query tile, and logits up to about +-30;
-    all at KERNEL_ATOL. At the path shape it times the kernel and SDPA in
+    values sharing an offset of 8 under near-uniform attention; all at
+    KERNEL_ATOL, with the largest difference from a float64 evaluation logged
+    beside the plain version's. At the path shape it times the kernel and SDPA in
     turns (kernel, SDPA, kernel, SDPA) and the plain version once."""
     gen = torch.Generator(device=dev).manual_seed(0)
     BH, K, Dh = path_shape
-    # name, BH, Kq, Kkv, Dh, fraction of keys masked, scale of q and k
-    cases = [("path", BH, K, K, Dh, 0.1, 1.0), ("ragged", 8, 1000, 1536, 64, 0.1, 1.0),
-             ("fully_masked_rows", 8, 512, 777, 128, 0.1, 1.0),
-             ("dh32", 8, 2048, 2048, 32, 0.1, 1.0), ("dh128", 8, 2048, 2048, 128, 0.1, 1.0),
-             ("short_queries", 8, 5, 777, 64, 0.1, 1.0), ("large_logits", 8, 2048, 2048, 64, 0.1, 2.5)]
+    # name, BH, Kq, Kkv, Dh, fraction of keys masked, scale of q and k,
+    # offset of v (near-uniform attention over values with a shared offset,
+    # as SuperGlue's deep layers: the output is a mean of 2048 values)
+    cases = [("path", BH, K, K, Dh, 0.1, 1.0, 0.0), ("ragged", 8, 1000, 1536, 64, 0.1, 1.0, 0.0),
+             ("fully_masked_rows", 8, 512, 777, 128, 0.1, 1.0, 0.0),
+             ("dh32", 8, 2048, 2048, 32, 0.1, 1.0, 0.0), ("dh128", 8, 2048, 2048, 128, 0.1, 1.0, 0.0),
+             ("short_queries", 8, 5, 777, 64, 0.1, 1.0, 0.0), ("large_logits", 8, 2048, 2048, 64, 0.1, 2.5, 0.0),
+             ("offset_values", 8, 2048, 2048, 64, 0.1, 0.1, 8.0)]
     out = {}
-    for name, bh, kq, kkv, dh, frac, qk_scale in cases:
+    for name, bh, kq, kkv, dh, frac, qk_scale, v_offset in cases:
         q = qk_scale * torch.randn(bh, kq, dh, device=dev, generator=gen)
         k = qk_scale * torch.randn(bh, kkv, dh, device=dev, generator=gen)
-        v = torch.randn(bh, kkv, dh, device=dev, generator=gen)
+        v = v_offset + torch.randn(bh, kkv, dh, device=dev, generator=gen)
         mask = (torch.rand(bh, kkv, device=dev, generator=gen) >= frac).float()
         if name == "fully_masked_rows":
             mask[::2] = 0.0
@@ -128,11 +139,16 @@ def check_attention_kernel(attention, dev, path_shape):
         err = float((got - want).abs().max())
         finite = bool(torch.isfinite(got).all())
         logit_max = float((torch.einsum("bqd,bkd->bqk", q[:1], k[:1]) / dh**0.5).abs().max())
+        exact = attention.reference_attention(q[:8].double(), k[:8].double(), v[:8].double(), mask[:8].double())
+        f64_err = (float((got[:8].double() - exact).abs().max()), float((want[:8].double() - exact).abs().max()))
+        del exact
         log(f"attention {name}: BH={bh} Kq={kq} Kkv={kkv} Dh={dh} |logit| up to {logit_max:.1f} "
-            f"max_abs_err={err:.3e} (tolerance {KERNEL_ATOL})")
+            f"max_abs_err={err:.3e} (tolerance {KERNEL_ATOL}); against float64 (first 8 heads): kernel "
+            f"{f64_err[0]:.2e}, plain {f64_err[1]:.2e}")
         if not finite or not err < KERNEL_ATOL:
             raise AssertionError(f"attention kernel disagrees with its plain version on {name}: {err}")
-        out[name] = dict(BH=bh, Kq=kq, Kkv=kkv, Dh=dh, max_abs_err=err, max_abs_logit=logit_max)
+        out[name] = dict(BH=bh, Kq=kq, Kkv=kkv, Dh=dh, max_abs_err=err, max_abs_logit=logit_max,
+                         kernel_vs_f64=f64_err[0], plain_vs_f64=f64_err[1])
         if name == "path":
             add_mask = torch.where(mask > 0, 0.0, attention.NEG)[:, None, :].expand(bh, kq, kkv)
             sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -414,8 +430,75 @@ def superglue_cpu_check(dev, slice_out):
         raise AssertionError(f"SuperGlue ran {launches} attention launches on the card, expected >= 36")
     if agree < 0.99:
         raise AssertionError("SuperGlue on the card disagrees with the CPU")
+    trace = superglue_trace(gpu, cpu, [t for t in (*st["descriptor"], norm(st["uv"][0]), norm(st["uv"][1]),
+                                                   *st["response"], *st["mask"])], dev)
     return dict(pairs=len(pairs), seconds=seconds, launches=launches, log_assign_max_abs_err=la_err,
-                match_agreement=agree)
+                match_agreement=agree, trace=trace)
+
+
+def superglue_trace(gpu, cpu, args, dev):
+    """Where SuperGlue's card-against-CPU difference grows, on the same 2
+    pairs: the largest difference after the keypoint encoder, after each of
+    the 18 GNN layers (9 self, 9 cross), of the scores, and of the log
+    assignment after each Sinkhorn sweep (live entries); and, per attention
+    call, the kernel on the card against the plain version on the CPU with
+    the CPU run's own inputs (what one call adds)."""
+    from gtsfm_tpu_torch.frontend.deep import superglue
+    from gtsfm_tpu_torch.ops import attention
+
+    calls = []
+    plain = superglue.masked_attention
+
+    def recording(q, k, v, kv_mask):
+        calls.append((q, k, v, kv_mask))
+        return plain(q, k, v, kv_mask)
+
+    stages = {}
+    for side, sg, d in (("cuda", gpu, dev), ("cpu", cpu, torch.device("cpu"))):
+        d0, d1, k0, k1, s0, s1, m0, m1 = (t.to(d) for t in args)
+        net, rows = sg.net, []
+        superglue.masked_attention = recording if side == "cpu" else plain
+        try:
+            with torch.no_grad():
+                x0, x1 = d0 + net.kenc(k0, s0), d1 + net.kenc(k1, s1)
+                rows.append(("encoder", torch.cat([x0, x1], 1)))
+                for i in range(superglue.NUM_GNN_LAYERS):
+                    self_l, cross_l = getattr(net, f"self{i}"), getattr(net, f"cross{i}")
+                    x0, x1 = self_l(x0, x0, m0), self_l(x1, x1, m1)
+                    rows.append((f"self{i}", torch.cat([x0, x1], 1)))
+                    x0, x1 = cross_l(x0, x1, m1), cross_l(x1, x0, m0)
+                    rows.append((f"cross{i}", torch.cat([x0, x1], 1)))
+                scores = superglue.scores_of(net.final_proj(x0), net.final_proj(x1))
+                rows.append(("scores", scores))
+                for it in range(1, superglue.SINKHORN_ITERS + 1):
+                    rows.append((f"sinkhorn{it}", superglue.log_sinkhorn(scores, m0, m1, sg.bin_score, iters=it)))
+        finally:
+            superglue.masked_attention = plain
+        stages[side] = [(name, t.cpu()) for name, t in rows]
+    m0, m1 = args[6], args[7]
+    live = torch.ones(stages["cpu"][-1][1].shape, dtype=torch.bool)
+    live[:, :-1] &= m0[:, :, None] > 0
+    live[:, :, :-1] &= m1[:, None, :] > 0
+    growth = []
+    for (name, a), (_, b) in zip(stages["cuda"], stages["cpu"]):
+        sel = live if name.startswith("sinkhorn") else live[:, :-1, :-1] if name == "scores" else slice(None)
+        growth.append((name, float((a - b).abs()[sel].max()), float(b.abs()[sel].max())))
+    per_call = []
+    for q, k, v, kv_mask in calls:
+        got = attention.flash_attention(*(t.to(dev).contiguous() for t in (q, k, v, kv_mask))).cpu()
+        plain = attention.reference_attention(q, k, v, kv_mask)
+        exact = attention.reference_attention(q.double(), k.double(), v.double(), kv_mask.double())
+        logit = float(torch.einsum("bqd,bkd->bqk", q, k).abs().amax() / q.shape[-1] ** 0.5)
+        per_call.append(dict(kernel_vs_plain=float((got - plain).abs().max()),
+                             kernel_vs_f64=float((got.double() - exact).abs().max()),
+                             plain_vs_f64=float((plain.double() - exact).abs().max()), max_abs_logit=logit))
+    log("superglue trace, card vs CPU (max abs difference, max abs value): "
+        + "; ".join(f"{n} {e:.2e} ({m:.1e})" for n, e, m in growth))
+    log(f"superglue trace: the kernel on the CPU run's {len(per_call)} attention inputs, per call "
+        "(kernel vs plain f32 / kernel vs float64 / plain f32 vs float64 / max |logit|): "
+        + "; ".join(f"{c['kernel_vs_plain']:.1e}/{c['kernel_vs_f64']:.1e}/{c['plain_vs_f64']:.1e}/"
+                    f"{c['max_abs_logit']:.1f}" for c in per_call))
+    return dict(growth=growth, attention_calls=per_call)
 
 
 class _ShapeLog:
@@ -1013,7 +1096,8 @@ def back_end_cpu_check(dev, num_images: int = 24, rows: int = 8):
     takes the card's onto the CPU's (BA leaves the scale free), within
     CPU_CHECK_CENTRE of the scene's extent. Logs the same differences before
     BA, the centres as they stand and the rotations by the metrics' own
-    float32 angle (atan2 of the relative rotation's sine and cosine)."""
+    float32 angle (atan2 of the relative rotation's sine and cosine), and
+    each side's LM iterations per BA stage."""
     from gtsfm_tpu_torch.geometry.alignment import rotation_errors_deg
     from gtsfm_tpu_torch.loader.synthetic import SyntheticAerialLoader
     from gtsfm_tpu_torch.ops import ransac
@@ -1062,18 +1146,20 @@ def back_end_cpu_check(dev, num_images: int = 24, rows: int = 8):
             centre_max_rel=float(np.abs(ta - tb).max()) / extent,
             centre_max_rel_similarity=float(np.abs(similarity_aligned(ta, tb) - tb).max()) / extent)
     rot, centre = diffs["final"]["rot_max_deg"], diffs["final"]["centre_max_rel_similarity"]
+    ba_iterations = {k: [v for m, v in g["bundle_adjustment_metrics"].items() if m.endswith("_iterations")]
+                     for k, g in (("card", g_card), ("cpu", g_cpu))}
     log(f"back_end_cpu_check: {num_images} images, {len(edges['card'])} view-graph edges "
         f"(identical: {same_edges}), {tracks['card']['num_tracks']} tracks (identical: {same_tracks}), "
         f"{int(live.sum())} cameras; card vs CPU {json.dumps(diffs)} (centres relative to the extent "
         f"{extent:.3f}; _similarity after the similarity that takes the card's onto the CPU's; limits: "
-        f"rot_max_deg {CPU_CHECK_ROT_DEG}, centre_max_rel_similarity {CPU_CHECK_CENTRE}); seconds card "
-        f"{seconds['card']:.2f}, CPU {seconds['cpu']:.2f}")
+        f"rot_max_deg {CPU_CHECK_ROT_DEG}, centre_max_rel_similarity {CPU_CHECK_CENTRE}); LM iterations per BA "
+        f"stage {json.dumps(ba_iterations, default=int)}; seconds card {seconds['card']:.2f}, CPU {seconds['cpu']:.2f}")
     if not (same_edges and same_tracks):
         raise AssertionError("the back end keeps other edges or tracks on the card than on the CPU")
     if not (rot <= CPU_CHECK_ROT_DEG and centre <= CPU_CHECK_CENTRE):
         raise AssertionError("the back end's poses on the card disagree with the CPU")
     return dict(images=num_images, edges=len(edges["card"]), tracks=tracks["card"]["num_tracks"], diffs=diffs,
-                seconds=seconds)
+                ba_iterations=ba_iterations, seconds=seconds)
 
 
 def _render_images(args):
@@ -1500,11 +1586,299 @@ def sift_cpu_check(dev, loader, num_images: int = 4):
                 pairs=len(pairs), matches=n_match, match_agreement=same)
 
 
+CLASSICAL_UV_PX = 0.01  # a card keypoint corresponds to a CPU keypoint this close, at the same scale
+CLASSICAL_RECALL = 0.99
+KAZE_DESC = 1e-4  # max abs KAZE descriptor difference on corresponding keypoints
+BITS_EQUAL = 0.999  # share of equal binary-descriptor bits on corresponding keypoints
+HAMMING_MATCH = 0.999  # share of live rows with the same Hamming match
+
+
+def _corresponding(card, cpu):
+    """(indices into card, into cpu) of the CPU's live keypoints with a live
+    card keypoint within CLASSICAL_UV_PX at the same scale, and the recall."""
+    from scipy.spatial import cKDTree
+
+    def pts(f):
+        live = np.nonzero(f.mask > 0)[0]
+        scale = f.scale[live] if f.scale is not None else np.zeros(live.size)
+        return live, np.concatenate([f.uv[live], 1e6 * scale[:, None]], 1)
+
+    lc, pc = pts(card)
+    lp, pp = pts(cpu)
+    dist, nn = cKDTree(pc).query(pp)
+    ok = dist <= CLASSICAL_UV_PX
+    return lc[nn[ok]], lp[ok], float(ok.mean()) if ok.size else 0.0
+
+
+def classical_cpu_check(dev, loader, num_images: int = 4):
+    """KAZE, ORB, BRISK, FAST and Harris at the preset's 4096 keypoints on
+    the survey's first images, on the card and on the CPU: recall of the
+    CPU's live keypoints by the card's (within CLASSICAL_UV_PX, same scale)
+    >= CLASSICAL_RECALL; KAZE descriptors within KAZE_DESC and >= BITS_EQUAL
+    of the ORB and BRISK bits equal on those pairs (a bit compares two
+    intensities, which float32 rounding can flip). Then match_hamming on the
+    card's ORB and BRISK descriptors for the 6 pairs among the images, on
+    the card and on the CPU: the same match on >= HAMMING_MATCH of the live
+    rows."""
+    from gtsfm_tpu_torch.common.image import to_grayscale
+    from gtsfm_tpu_torch.frontend import classical, kaze
+    from gtsfm_tpu_torch.ops import matching
+
+    grays = np.stack([to_grayscale(loader.get_image(i)[0].value_array) for i in range(num_images)])
+    detectors = {"kaze": kaze.detect_and_describe, "orb": classical.orb_detect_and_describe,
+                 "brisk": classical.brisk_detect_and_describe, "fast": classical.detect_fast,
+                 "harris": classical.detect_harris}
+    pairs = [(a, b) for a in range(num_images) for b in range(a + 1, num_images)]
+    ia, ib = [a for a, _ in pairs], [b for _, b in pairs]
+    out, failed = {}, []
+    for name, fn in detectors.items():
+        feats, seconds = {}, {}
+        for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            t0 = time.perf_counter()
+            raw = fn(torch.as_tensor(grays, device=d), max_keypoints=4096)
+            feats[side] = classical.Features(*(t.cpu().numpy() for t in raw))
+            seconds[side] = time.perf_counter() - t0
+        card, cpu = feats["card"], feats["cpu"]
+        recall, desc_err, bits, counts = [], 0.0, [], []
+        for b in range(num_images):
+            per = [classical.Features(*(t[b] for t in f)) for f in (card, cpu)]
+            ic, ip, r = _corresponding(*per)
+            recall.append(r)
+            counts.append((int(per[0].mask.sum()), int(per[1].mask.sum())))
+            if name == "kaze":
+                desc_err = max(desc_err, float(np.abs(per[0].descriptor[ic] - per[1].descriptor[ip]).max()))
+            elif name in ("orb", "brisk"):
+                bits.append(float(np.mean(per[0].descriptor[ic] == per[1].descriptor[ip])))
+        rec = dict(live_keypoints=counts, recall=recall, card_s=seconds["card"], cpu_s=seconds["cpu"])
+        msg = (f"classical_cpu_check {name}: {num_images} images, live keypoints (card, cpu) {counts}; recall "
+               f"{[round(r, 5) for r in recall]} within {CLASSICAL_UV_PX} px (limit {CLASSICAL_RECALL}); "
+               f"first call {seconds['card']:.2f} s on the card, {seconds['cpu']:.2f} s on the CPU")
+        ok = min(recall) >= CLASSICAL_RECALL and min(c[0] for c in counts) > 0
+        if name == "kaze":
+            rec["desc_max_abs_err"] = desc_err
+            msg += f"; max descriptor difference {desc_err:.3e} (limit {KAZE_DESC})"
+            ok &= desc_err <= KAZE_DESC
+        if name in ("orb", "brisk"):
+            idx = {}
+            for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+                t = lambda x: torch.as_tensor(x, device=d)  # noqa: E731
+                got, _ = matching.match_hamming(t(card.descriptor[ia]), t(card.descriptor[ib]), t(card.mask[ia]),
+                                                t(card.mask[ib]), ratio_test=0.8)
+                idx[side] = got.cpu().numpy()
+            live = card.mask[ia] > 0
+            same = float(np.mean((idx["card"] == idx["cpu"])[live]))
+            rec.update(bits_equal=bits, hamming_matches=int(np.sum(idx["card"] >= 0)), hamming_agreement=same)
+            msg += (f"; bits equal {[round(x, 5) for x in bits]} (limit {BITS_EQUAL}); match_hamming on "
+                    f"{len(pairs)} pairs: {rec['hamming_matches']} matches, the same on {same:.5%} of live rows "
+                    f"(limit {HAMMING_MATCH:.1%})")
+            ok &= min(bits) >= BITS_EQUAL and same >= HAMMING_MATCH
+        log(msg)
+        if not ok:
+            failed.append(name)
+        out[name] = rec
+    if failed:
+        raise AssertionError(f"classical front ends on the card disagree with the CPU: {failed}")
+    return out
+
+
+def scene_summary(result, opt, seconds: float) -> dict:
+    """The record of one SceneOptimizer.run: how it ended, pairs, tracks,
+    cameras, rotation error after Sim(3), mean reprojection, stage seconds
+    and peak GB."""
+    groups = metric_groups(result)
+    out = dict(seconds=seconds, ended=groups["total_summary_metrics"].get("degraded_reason", "complete"),
+               pairs=groups["retriever_metrics"]["num_retrieved_image_pairs"],
+               verified_pairs=groups["two_view_metrics"]["num_verified_pairs"],
+               cameras=int(result.scene.num_cameras()), stage_seconds=dict(opt.stage_seconds),
+               stage_peak_gb={k: v / 1e9 for k, v in opt.stage_peak_bytes.items()})
+    kpts = np.asarray(groups["correspondence_metrics"]["num_keypoints_per_image"])
+    out["keypoints_min_median_max"] = [float(kpts.min()), float(np.median(kpts)), float(kpts.max())]
+    if "data_association_metrics" in groups:
+        out["tracks"] = groups["data_association_metrics"]["num_tracks"]
+    if "ba_pose_error_metrics" in groups:
+        rot = np.asarray(groups["ba_pose_error_metrics"]["rotation_angle_error_deg"])
+        out.update(rot_err_max_deg=float(rot.max()), rot_err_median_deg=float(np.median(rot)),
+                   mean_reproj_px=float(result.scene.mean_reprojection_error()))
+    return out
+
+
+def run_front_end(dev, loader, feature_type: str):
+    """SceneOptimizer.run on the survey's renders with the SIFT preset and
+    only ``feature_type`` changed (as the JAX package's door-12-orb cell
+    overrides the default), plots off. Recorded, not barred: pairs, tracks,
+    cameras, rotation error after Sim(3), reprojection, and per stage the
+    cold seconds and peak GB."""
+    from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
+
+    out_root = os.path.join(ROOT, "build", f"chip_smoke_run_{feature_type}")
+    shutil.rmtree(out_root, ignore_errors=True)
+    cfg = sift_config(out_root)
+    cfg.frontend.feature_type = feature_type
+    opt = SceneOptimizer(cfg, device=dev)
+    t0 = time.perf_counter()
+    result = opt.run(loader, save_outputs=True)
+    torch.cuda.synchronize()
+    out = scene_summary(result, opt, time.perf_counter() - t0)
+    log(f"run_{feature_type}: {json.dumps(out, default=float)}")
+    return out
+
+
+DEEP_UV_PX = 0.01  # a card keypoint corresponds to a CPU keypoint this close
+DEEP_DESC = 1e-4  # max abs descriptor difference on corresponding keypoints
+DEEP_RECALL = 0.99
+
+
+def deep_detectors(dev):
+    """D2-Net and DISK (seeded weights, the SIFT preset with feature_type
+    changed, 4096 keypoints) through compute_features and run_two_view on the
+    deep cell's 12 images and 30 pairs: ms per image, peak GB, keypoints and
+    matches. Then 2 images through each model on the card and on the CPU
+    with the same weights: recall of the CPU's live keypoints by the card's
+    within DEEP_UV_PX >= DEEP_RECALL, descriptors within DEEP_DESC on those
+    pairs."""
+    from gtsfm_tpu_torch.common.image import to_grayscale
+    from gtsfm_tpu_torch.frontend.deep import d2net, disk
+    from gtsfm_tpu_torch.loader.synthetic import SyntheticAerialLoader
+    from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
+
+    loader = SyntheticAerialLoader(num_images=12)
+    for i in range(len(loader)):  # render outside the timed stages
+        loader.get_image(i)
+    out = {}
+    for name, cls in (("d2net", d2net.D2Net), ("disk", disk.Disk)):
+        cfg = sift_config(os.path.join(ROOT, "build", f"chip_smoke_{name}"))
+        cfg.frontend.feature_type = name
+        cfg.frontend.allow_random_weights = True  # seeded weights: no checkpoint in the repo
+        opt = SceneOptimizer(cfg, device=dev)
+        pairs = opt.generate_pairs(loader)
+        model = opt._deep_model(name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        feats, cals, _ = opt.compute_features(loader)
+        torch.cuda.synchronize()
+        t_feat = time.perf_counter() - t0
+        peak_feat = torch.cuda.max_memory_allocated() / 1e9
+        t0 = time.perf_counter()
+        res, match_idx = opt.run_two_view(feats, cals, pairs)
+        torch.cuda.synchronize()
+        t_tv = time.perf_counter() - t0
+        kpts = [int(np.sum(f.mask)) for f in feats]
+        div = 4 if name == "d2net" else 16
+        grays = np.stack([to_grayscale(loader.get_image(i)[0].value_array) for i in range(2)])
+        h, w = (grays.shape[1] // div) * div, (grays.shape[2] // div) * div
+        rgb = np.repeat(grays[:, :h, :w, None], 3, axis=-1)
+        cpu_model = cls(params={k: v.cpu() for k, v in model.params.items()}, max_keypoints=model.max_keypoints,
+                        device="cpu")
+        card = [t.cpu().numpy() for t in model(rgb)]
+        cpu = [t.cpu().numpy() for t in cpu_model(rgb)]
+        recall, desc_err = [], 0.0
+        for b in range(2):
+            ic, ip, r = _corresponding(classical_record(card, b), classical_record(cpu, b))
+            recall.append(r)
+            desc_err = max(desc_err, float(np.abs(card[2][b][ic] - cpu[2][b][ip]).max()) if ic.size else 0.0)
+        out[name] = dict(images=len(loader), pairs=len(pairs), compute_features_s=t_feat,
+                         ms_per_image=1e3 * t_feat / len(loader), features_peak_gb=peak_feat, run_two_view_s=t_tv,
+                         keypoints_min_max=[min(kpts), max(kpts)], matches=int((match_idx >= 0).sum()),
+                         verified=int(res.success.sum()), recall=recall, desc_max_abs_err=desc_err)
+        log(f"deep_detectors {name}: {json.dumps(out[name], default=float)} (limits: recall {DEEP_RECALL} within "
+            f"{DEEP_UV_PX} px, descriptors {DEEP_DESC})")
+        if min(recall) < DEEP_RECALL or desc_err > DEEP_DESC or min(kpts) == 0:
+            raise AssertionError(f"{name} on the card disagrees with the CPU")
+    return out
+
+
+def classical_record(raw, b):
+    """Image b of a batched (uv, response, descriptor, mask) detector output
+    as a Features record (no scale)."""
+    from gtsfm_tpu_torch.frontend import classical
+
+    return classical.Features(uv=raw[0][b], scale=None, response=raw[1][b], descriptor=raw[2][b], mask=raw[3][b])
+
+
+LOFTR_MATCH = 0.99  # share of the live coarse matches both devices keep
+LOFTR_KPT_PX = 1e-2  # kpts1 of a shared match, card vs CPU
+
+
+def loftr_phase(dev, survey):
+    """LoFTR (seeded weights) through the detector-free path: run on the
+    deep cell's 12 images and 30 pairs (ending at "empty_view_graph" is
+    acceptable with seeded weights, a crash is not); then
+    run_image_correspondences on the survey's 854 pairs at full width
+    (max_matches 4096, 48 x 64 = 3072 coarse tokens a side): ms per pair,
+    peak GB, kept correspondences. Last, 2 of the survey's pairs on the card
+    and on the CPU with the same weights and the confidence gate at 0 (the
+    seeded confidences sit near 1e-3, under LoFTR's 0.2, as in
+    tests/test_torch_loftr.py): the same coarse matches (kpts0 and kpts1
+    within LOFTR_KPT_PX) on >= LOFTR_MATCH of the live slots of either."""
+    from gtsfm_tpu_torch.frontend.deep import loftr
+    from gtsfm_tpu_torch.loader.synthetic import SyntheticAerialLoader
+    from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
+
+    out_root = os.path.join(ROOT, "build", "chip_smoke_loftr")
+    shutil.rmtree(out_root, ignore_errors=True)
+    cfg = sift_config(out_root)
+    cfg.frontend.feature_type = "loftr"
+    cfg.frontend.allow_random_weights = True  # seeded weights: no checkpoint in the repo
+    opt = SceneOptimizer(cfg, device=dev)
+    t0 = time.perf_counter()
+    result = opt.run(SyntheticAerialLoader(num_images=12), save_outputs=True)
+    torch.cuda.synchronize()
+    deep = scene_summary(result, opt, time.perf_counter() - t0)
+    log(f"loftr run (deep cell, 12 images): {json.dumps(deep, default=float)}")
+
+    pairs = opt.generate_pairs(survey)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    feats, _, _, pre = opt.run_image_correspondences(survey, pairs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    kept = int(pre[2].sum())
+    full = dict(pairs=len(pairs), seconds=seconds, ms_per_pair=1e3 * seconds / len(pairs),
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9, kept_correspondences=kept,
+                keypoints_per_image=int(feats[0].uv.shape[0]))
+    log(f"loftr run_image_correspondences (survey, full width): {json.dumps(full, default=float)}")
+
+    model = opt._deep_model("loftr")
+    cpu_model = loftr.LoFTR(params={k: v.cpu() for k, v in model.params.items()}, max_matches=4096, device="cpu")
+    from gtsfm_tpu_torch.common.image import to_grayscale
+
+    gate = loftr.CONF_THRESH
+    loftr.CONF_THRESH = 0.0
+    try:
+        agree, kpt_err, live = [], 0.0, []
+        for a, b in pairs[:2]:
+            g = [to_grayscale(survey.get_image(i)[0].value_array) for i in (a, b)]
+            g = [x[: x.shape[0] // 8 * 8, : x.shape[1] // 8 * 8] for x in g]
+            m = {side: mdl(*g) for side, mdl in (("card", model), ("cpu", cpu_model))}
+            sets = {}
+            for side, r in m.items():
+                keep = r.mask.cpu().numpy() > 0
+                sets[side] = {tuple(k0): k1 for k0, k1 in zip(r.kpts0.cpu().numpy()[keep].tolist(),
+                                                              r.kpts1.cpu().numpy()[keep])}
+            shared = set(sets["card"]) & set(sets["cpu"])
+            errs = [float(np.abs(sets["card"][k] - sets["cpu"][k]).max()) for k in shared]
+            same = sum(e <= LOFTR_KPT_PX for e in errs)
+            agree.append(same / max(len(set(sets["card"]) | set(sets["cpu"])), 1))
+            kpt_err = max([kpt_err] + errs)
+            live.append((len(sets["card"]), len(sets["cpu"])))
+    finally:
+        loftr.CONF_THRESH = gate
+    check = dict(pairs=2, live_matches=live, agreement=agree, kpts1_max_abs_err=kpt_err)
+    log(f"loftr card vs CPU (gate at 0): {json.dumps(check)} (limits: {LOFTR_MATCH:.0%} of live slots, kpts1 "
+        f"within {LOFTR_KPT_PX} px)")
+    if min(agree) < LOFTR_MATCH or min(min(x) for x in live) == 0:
+        raise AssertionError("LoFTR on the card disagrees with the CPU")
+    return dict(run_deep_cell=deep, survey=full, cpu_check=check)
+
+
 def runner_cli(num_images: int = 12):
     """python -m gtsfm_tpu_torch.runner's main() with the default
     configuration (plots off, as in sift_config) on an Olsson folder (JPG +
     data.mat) of a two-row survey, written under build/, then with
-    ``--loader colmap`` on the model it wrote and the same images: the DONE
+    ``--loader colmap`` on the model it wrote and the same images, then with
+    ``--override frontend.feature_type=orb`` on the Olsson folder: the DONE
     lines and the model files."""
     from gtsfm_tpu_torch.runner import __main__ as runner
 
@@ -1514,9 +1888,10 @@ def runner_cli(num_images: int = 12):
     data = write_olsson_folder(os.path.join(root, "survey"), loader, range(num_images))
     outs = {}
     for name, extra in (("olsson", []), ("colmap", ["--loader", "colmap", "--images_dir",
-                                                     os.path.join(data, "images")])):
+                                                     os.path.join(data, "images")]),
+                        ("orb", ["--override", "frontend.feature_type=orb"])):
         out = os.path.join(root, f"results_{name}")
-        dataset = data if name == "olsson" else os.path.join(root, "results_olsson", "ba_output")
+        dataset = os.path.join(root, "results_olsson", "ba_output") if name == "colmap" else data
         argv = ["--dataset_root", dataset, "--output_root", out, "--no_cache", "--override", "save_plots=false"]
         buf = io.StringIO()
         t0 = time.perf_counter()
@@ -1525,10 +1900,10 @@ def runner_cli(num_images: int = 12):
         seconds = time.perf_counter() - t0
         done = [line for line in buf.getvalue().splitlines() if line.startswith("DONE:")]
         files = _files(out)
-        log(f"runner_cli --loader {name}: {num_images} images, rc {rc}, {seconds:.2f} s: {done}; {len(files)} files")
+        log(f"runner_cli {name}: {num_images} images, rc {rc}, {seconds:.2f} s: {done}; {len(files)} files")
         missing = [f for f in SIFT_FILES if f not in files]
         if rc != 0 or len(done) != 1 or not done[0].startswith(f"DONE: {num_images} cameras") or missing:
-            raise AssertionError(f"runner CLI --loader {name}: rc {rc}, {done}, missing {missing}")
+            raise AssertionError(f"runner CLI {name}: rc {rc}, {done}, missing {missing}")
         outs[name] = dict(seconds=seconds, done=done[0], files=len(files))
     return dict(images=num_images, **outs)
 
@@ -1585,6 +1960,10 @@ def main() -> int:
     unified = phase("run_unified", run_unified, dev, survey, sift_run)
     retrieved = phase("retrieval", retrieval, dev, survey)
     sift_check = phase("sift_cpu_check", sift_cpu_check, dev, survey)
+    classical_check = phase("classical_cpu_check", classical_cpu_check, dev, survey)
+    front_ends = {ft: phase(f"run_{ft}", run_front_end, dev, survey, ft) for ft in ("kaze", "orb", "brisk")}
+    deep_dets = phase("deep_detectors", deep_detectors, dev)
+    loftr_out = phase("loftr", loftr_phase, dev, survey)
     cli = phase("runner_cli", runner_cli)
     # the kernel at the new paths' shapes: SuperGlue's 512-pair chunk, and
     # two Kq != Kkv shapes the decisive adaptive LightGlue run launched
@@ -1626,7 +2005,9 @@ def main() -> int:
                     "back_end_cpu_check": cpu_check, "run_sift": sift_run, "sift_cpu_check": sift_check,
                     "runner_cli": cli, "superglue_cpu_check": sg_check, "lightglue_adaptive": adaptive,
                     "verifiers_check": zoo, "superglue_known": sg_known, "run_unified": unified,
-                    "retrieval": retrieved, "phase_seconds": phase_s}, default=float))
+                    "retrieval": retrieved, "classical_cpu_check": classical_check,
+                    **{f"run_{ft}": v for ft, v in front_ends.items()}, "deep_detectors": deep_dets,
+                    "loftr": loftr_out, "phase_seconds": phase_s}, default=float))
     log(f"{smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -13,7 +13,8 @@ measurement tensors; every LM iteration is:
                 camera system is dense and solved by Cholesky while
                 ``_use_dense_schur`` holds, else by block-Jacobi PCG;
   LM            multiplicative damping, accept/reject on the robust cost,
-                read on the host once per iteration.
+                read on the host once per iteration; the final stage of
+                ``run_ba_with_filtering`` runs in float64 to a tighter stop.
 
 Camera delta = (omega right-applied to R, dt, dcal on (f, k1, k2)); with
 calibration frozen the camera blocks are 6-dim. Gauge: the first live
@@ -322,6 +323,19 @@ def _sorted_measurements(scene: SceneData, bucket_l: int | None):
     return scene, active
 
 
+# LM stops once an accepted step lowers the cost by less than this fraction
+# of it. Float32 stages stop at the JAX package's 1e-6. On a weakly
+# conditioned scene (a nadir survey) that leaves the poses up to 0.01 deg
+# short of the optimum, at a point float32 rounding picks; the float64 final
+# stage runs on to 1e-10, where they have converged.
+_REL_TOL = {torch.float32: 1e-6, torch.float64: 1e-10}
+
+
+def _cast(scene: SceneData, dtype: torch.dtype) -> SceneData:
+    """The scene with its cameras, points and measurements in ``dtype``."""
+    return scene.replace(**{k: getattr(scene, k).to(dtype) for k in ("wRi", "wti", "cal", "points", "meas_uv")})
+
+
 def lm_optimize(
     scene: SceneData,
     cfg: BAConfig = BAConfig(),
@@ -330,8 +344,9 @@ def lm_optimize(
     band_plan=None,
 ) -> BAResult:
     """Run LM to convergence (max iterations, early stop on relative cost
-    decrease < 1e-6 or damping at lambda_max). cam_fixed: optional (N,) {0,1}
-    cameras to freeze; defaults to the first live camera (gauge anchor)."""
+    decrease < _REL_TOL of the scene's dtype or damping at lambda_max).
+    cam_fixed: optional (N,) {0,1} cameras to freeze; defaults to the first
+    live camera (gauge anchor)."""
     if priors is not None:
         raise NotImplementedError("BA relative-pose priors " + _NOT_PORTED.format("'BA extensions and rigs'"))
     if cfg.band is not None or band_plan is not None:
@@ -352,7 +367,11 @@ def lm_optimize(
     blocks, cost0 = _build_blocks(scene, cfg, cam_free, active)
 
     f32 = np.float32
-    cost = f32(cost0.item())
+    # The host keeps the cost at the scene's precision (a float64 stage
+    # compares float64 costs); the damping stays float32.
+    fc = np.float64 if scene.wRi.dtype == torch.float64 else f32
+    rel_tol = _REL_TOL[scene.wRi.dtype]
+    cost = fc(cost0.item())
     lam = f32(cfg.lambda_init)
     it = 0
     converged = False
@@ -360,7 +379,7 @@ def lm_optimize(
         dc, dp = solve(*blocks, scene, float(lam), cfg, bf16)
         cand = _update_scene(scene, dc, dp)
         new_blocks, new_cost_t = _build_blocks(cand, cfg, cam_free, active)
-        new_cost = f32(new_cost_t.item())  # the one host read per iteration
+        new_cost = fc(new_cost_t.item())  # the one host read per iteration
         accept = bool(new_cost < cost)
         if accept:
             scene, blocks = cand, new_blocks
@@ -370,8 +389,8 @@ def lm_optimize(
             cost_next = cost
             lam = f32(lam * f32(cfg.lambda_up))
         lam = f32(min(max(lam, f32(cfg.lambda_min)), f32(cfg.lambda_max)))
-        rel_decrease = f32((cost - cost_next) / max(cost, f32(1e-12)))
-        converged = accept and rel_decrease < 1e-6
+        rel_decrease = fc((cost - cost_next) / max(cost, fc(1e-12)))
+        converged = accept and rel_decrease < rel_tol
         cost = cost_next
         it += 1
     dev = scene.device
@@ -386,20 +405,22 @@ def run_ba_with_filtering(
 ) -> tuple[SceneData, list[dict]]:
     """Multi-stage BA: optimize, filter landmarks by threshold, repeat
     (reference bundle_adjustment.py:292-357). The bulk stages keep the
-    bfloat16 coupling; the final stage runs in float32."""
+    bfloat16 coupling; the final stage runs in float64 and its result is
+    rounded back to float32."""
     stats = []
     for k, thresh in enumerate(reproj_thresholds_px):
         t_stage = time.perf_counter()
         stage_cfg = cfg
-        if k == len(reproj_thresholds_px) - 1 and cfg.schur_bf16:
+        final = k == len(reproj_thresholds_px) - 1
+        if final and cfg.schur_bf16:
             stage_cfg = stage_cfg._replace(schur_bf16=False)
         t_prep = time.perf_counter()
-        result = lm_optimize(scene, stage_cfg, priors=priors)
+        result = lm_optimize(_cast(scene, torch.float64) if final else scene, stage_cfg, priors=priors)
         iters = result.iterations
         if scene.device.type == "cuda":
             torch.cuda.synchronize(scene.device)
         t_opt = time.perf_counter()
-        scene = result.scene.filter_landmarks(thresh)
+        scene = _cast(result.scene, torch.float32).filter_landmarks(thresh)
         tracks, meas = scene.num_tracks(), scene.num_measurements()
         t_end = time.perf_counter()
         stats.append(dict(

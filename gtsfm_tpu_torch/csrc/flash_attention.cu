@@ -58,7 +58,7 @@
 //     per kv tile issues S = Q.K^T as 3 x Dh/8 wgmma.m64nBKVk8 (B = K from
 //     shared memory), does the online softmax on the accumulator fragment in
 //     registers (exp2 on the SFU with log2(e) folded into the scale), splits
-//     P into hi/lo registers and issues O += P.V as 3 x BKV/8
+//     P into hi/lo registers and issues the tile's P.V as 3 x BKV/8
 //     wgmma.m64nDHk8 with A = P from registers. S of tile t + 1 and P.V of
 //     tile t are in flight together while the softmax of tile t + 1 runs, and
 //     the two consumer warpgroups take turns to issue (ping-pong), so the
@@ -432,11 +432,13 @@ flash_attention_kernel(const __grid_constant__ Maps maps, const float* __restric
 
     const uint32_t qlo = base + C::QLO + wg * 64 * 128;
 
-    float o[DH / 2], sacc[BKV / 2];
+    // o: the output rows, accumulated across kv tiles on the CUDA cores;
+    // ot: one tile's P.V from the tensor cores (see issue_pv).
+    float o[DH / 2], ot[DH / 2], sacc[BKV / 2];
     uint32_t qhi[DH / 8][4], qlo_r[C::QLO_IN_REGS ? DH / 8 : 1][4], phi[BKV / 8][4], plo[BKV / 8][4];
     float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f}, corr[2];
 #pragma unroll
-    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DH / 2; ++i) o[i] = ot[i] = 0.f;
 
     // S = Qlo.Khi + Qhi.Klo + Qhi.Khi for tile t (landed), committed as one
     // group; Q from registers (Qlo from shared memory for Dh = 128).
@@ -456,7 +458,15 @@ flash_attention_kernel(const __grid_constant__ Maps maps, const float* __restric
       for (int kk = 0; kk < DH / 8; ++kk) Wgmma<BKV>::rs(sacc, qhi[kk], desc_k(khi, kk), 1);
       wgmma_commit();
     };
-    // O += Plo.Vhi + Phi.Vlo + Phi.Vhi for tile t, committed as one group.
+    // Ot = Plo.Vhi + Phi.Vlo + Phi.Vhi for tile t, committed as one group,
+    // into a fresh accumulator: the tensor cores add into their f32
+    // accumulator without rounding to nearest, an error that grows with the
+    // number of k8 steps added into it. Summed over a whole row of 2048 keys
+    // (768 steps) it reached 3e-5 of the output, 8x further from float64
+    // than the plain version, for values with a shared offset under
+    // near-uniform attention (scripts/torch_attention_accumulation_probe.py).
+    // Per 64-key tile (24 steps) it stays at f32 grade, and
+    // rescale_and_split adds the tiles on the CUDA cores.
     auto issue_pv = [&](int t) {
       const uint32_t vhi = stage(t) + 2 * C::KV_BYTES, vlo = vhi + C::KV_BYTES;
 #pragma unroll
@@ -465,7 +475,7 @@ flash_attention_kernel(const __grid_constant__ Maps maps, const float* __restric
 #pragma unroll
         for (int kk = 0; kk < BKV / 8; ++kk) {
           const uint32_t off_b = (kk / 4) * DH * 128 + (kk % 4) * 32;
-          Wgmma<DH>::rs(o, pass == 0 ? plo[kk] : phi[kk], smem_desc(b + off_b), 1);
+          Wgmma<DH>::rs(ot, pass == 0 ? plo[kk] : phi[kk], smem_desc(b + off_b), pass > 0 || kk > 0);
         }
       }
       wgmma_commit();
@@ -506,7 +516,7 @@ flash_attention_kernel(const __grid_constant__ Maps maps, const float* __restric
         l_run[h] = l_run[h] * corr[h] + sum;
       }
     };
-    // O *= corr, and P as the A fragment of each k8 step: (row g, k t),
+    // O = (O + Ot) * corr, and P as the A fragment of each k8 step: (row g, k t),
     // (g + 8, t), (g, t + 4), (g + 8, t + 4); with V^T's key order
     // 0,2,4,6,1,3,5,7 those are the accumulator's entries 0, 2, 1, 3 of
     // n8 block kk.
@@ -515,8 +525,8 @@ flash_attention_kernel(const __grid_constant__ Maps maps, const float* __restric
       for (int j = 0; j < DH / 8; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          o[4 * j + 2 * h] *= corr[h];
-          o[4 * j + 2 * h + 1] *= corr[h];
+          o[4 * j + 2 * h] = (o[4 * j + 2 * h] + ot[4 * j + 2 * h]) * corr[h];
+          o[4 * j + 2 * h + 1] = (o[4 * j + 2 * h + 1] + ot[4 * j + 2 * h + 1]) * corr[h];
         }
 #pragma unroll
       for (int kk = 0; kk < BKV / 8; ++kk) {
@@ -539,6 +549,7 @@ flash_attention_kernel(const __grid_constant__ Maps maps, const float* __restric
       fence_regs(qlo_r);
       fence_regs(sacc);
       fence_regs(o);
+      fence_regs(ot);
       fence_regs(phi);
       fence_regs(plo);
     };
@@ -616,6 +627,8 @@ flash_attention_kernel(const __grid_constant__ Maps maps, const float* __restric
     if (wg == 0) my_turn();  // take warpgroup 1's last turn
     wgmma_wait_all();
     fence_all();
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) o[i] += ot[i];
 
     float* ob = out + (size_t)bh * Kq * DH;
 #pragma unroll

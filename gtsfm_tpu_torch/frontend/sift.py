@@ -218,6 +218,26 @@ def _bilinear_stack_vec(flat: torch.Tensor, base_off: torch.Tensor, w_stride: to
     return v00 * (1 - fy) * (1 - fx) + v01 * (1 - fy) * fx + v10 * fy * (1 - fx) + v11 * fy * fx
 
 
+def _bilinear(img: torch.Tensor, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Bilinear samples of a batch of maps img (B, H, W) at float coords
+    y, x (B, N); out-of-bounds coordinates are clamped to [0, H - 1.001] x
+    [0, W - 1.001], as in the JAX package. Returns (B, N)."""
+    Bn, H, W = img.shape
+    flat = img.reshape(Bn, H * W)
+    x = torch.clamp(x, 0.0, W - 1.001)
+    y = torch.clamp(y, 0.0, H - 1.001)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = x - x0
+    fy = y - y0
+    base = y0.long() * W + x0.long()
+    v00 = torch.gather(flat, 1, base)
+    v01 = torch.gather(flat, 1, base + 1)
+    v10 = torch.gather(flat, 1, base + W)
+    v11 = torch.gather(flat, 1, base + W + 1)
+    return v00 * (1 - fy) * (1 - fx) + v01 * (1 - fy) * fx + v10 * fy * (1 - fx) + v11 * fy * fx
+
+
 def _linspace(start: float, stop: float, n: int, device) -> torch.Tensor:
     """``jnp.linspace(start, stop, n)`` in float32 bit for bit, as XLA on the
     CPU computes it: s = i * f32(1 / (n - 1)), then start * f32(1 - f32(s))

@@ -16,7 +16,7 @@ import json
 
 @dataclasses.dataclass
 class FrontendConfig:
-    feature_type: str = "sift"  # sift | superpoint | orb | brisk | d2net | disk | loftr
+    feature_type: str = "sift"  # sift | superpoint | kaze | orb | brisk | d2net | disk | loftr
     max_keypoints: int = 4096
     ratio_test: float = 0.8
     matcher_type: str = "mutual_nn"  # mutual_nn | superglue | lightglue

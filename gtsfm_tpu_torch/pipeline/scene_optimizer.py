@@ -7,12 +7,14 @@ runner/gtsfm_runner_base.py:275-413). ``run(loader)`` goes through:
 
   1. retrieval -> pair list (exhaustive, sequential window, rig window, or
      NetVLAD similarity with or without the window);
-  2. features (SIFT or SuperPoint) for every image, batched per image shape
-     and cached by content hash;
-  3. batched matching (LightGlue, SuperGlue, or mutual nearest neighbour)
-     and batched RANSAC two-view estimation, the optional GRIC degeneracy
-     gate and two-view BA, in fixed-size chunks of pairs (cached by the
-     two-view cache);
+  2. features (SIFT, SuperPoint, KAZE, ORB, BRISK, D2-Net or DISK) for
+     every image, batched per image shape and cached by content hash; or,
+     for LoFTR, detector-free correspondences per pair, aggregated into one
+     keypoint table per image;
+  3. batched matching (LightGlue, SuperGlue, mutual nearest neighbour, or
+     Hamming mutual nearest neighbour for ORB and BRISK) and batched RANSAC
+     two-view estimation, the optional GRIC degeneracy gate and two-view BA,
+     in fixed-size chunks of pairs (cached by the two-view cache);
   4. cycle-consistency view-graph filter and largest connected component;
   5. rotation averaging (certifiable staircase);
   6. tracks (union-find) -> 1dSFM translation averaging;
@@ -22,10 +24,9 @@ runner/gtsfm_runner_base.py:275-413). ``run(loader)`` goes through:
      export, the metrics JSON/HTML, the process graph, the diagnostic plots
      and the web viewer.
 
-Runs on one device, ``"cuda"`` unless the caller asks otherwise. Other
-detectors, fisheye and rig loaders, pose priors, distributed BA and
-densification are later slices (ROADMAP queue 1) and raise
-NotImplementedError.
+Runs on one device, ``"cuda"`` unless the caller asks otherwise. Fisheye and
+rig loaders, pose priors, distributed BA and densification are later slices
+(ROADMAP queue 1) and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -80,6 +81,7 @@ class SceneOptimizer:
         self.config = config or PipelineConfig()
         self.device = resolve_device(device)
         self._matchers: dict = {}  # deep matchers by type, built once
+        self._models: dict = {}  # deep front-end models (D2-Net, DISK, LoFTR) by type, built once
         # Wall seconds per stage of the last run() (device-synchronized).
         self.stage_seconds: dict[str, float] = {}
         # Peak device bytes allocated per stage of the last run(), and per
@@ -135,16 +137,67 @@ class SceneOptimizer:
             return similarity.union_with_window(pairs, len(loader), cfg.max_frame_lookahead)
         return pairs
 
+    def _deep_model(self, kind: str):
+        """The D2-Net, DISK or LoFTR model, built once per optimizer, with
+        its checkpoint or, where ``allow_random_weights`` is set, seeded
+        weights."""
+        fe = self.config.frontend
+        if kind not in self._models:
+            if kind == "d2net":
+                from gtsfm_tpu_torch.frontend.deep import d2net
+
+                m = d2net.D2Net(max_keypoints=fe.max_keypoints, checkpoint_path=fe.d2net_checkpoint,
+                                device=self.device)
+            elif kind == "disk":
+                from gtsfm_tpu_torch.frontend.deep import disk
+
+                m = disk.Disk(max_keypoints=fe.max_keypoints, checkpoint_path=fe.disk_checkpoint, device=self.device)
+            else:
+                from gtsfm_tpu_torch.frontend.deep import loftr
+
+                m = loftr.LoFTR(max_matches=fe.max_keypoints, device=self.device)
+            if m.params is None:
+                if not fe.allow_random_weights:
+                    raise ValueError(f"{kind} requires a checkpoint or allow_random_weights")
+                m.init_random()
+            self._models[kind] = m
+        return self._models[kind]
+
     def _make_detector(self):
-        """Returns detect(gray images (B, H, W)) -> batched features with
-        (uv, response, descriptor, mask) fields, and ``scale`` for SIFT, per
-        the feature type."""
+        """Returns (detect, peak bytes per pixel): detect(gray images
+        (B, H, W)) -> batched features with (uv, response, descriptor, mask)
+        fields and, except for SuperPoint, D2-Net and DISK, ``scale``; the
+        peak is the device memory one image holds per pixel (None: no
+        estimate, a whole shape group per call)."""
         cfg = self.config.frontend
+        dev = self.device
+        on_device = lambda grays: torch.as_tensor(grays, dtype=torch.float32).to(dev)  # noqa: E731
         if cfg.feature_type == "sift":
-            return lambda grays: sift.detect_and_describe(
-                torch.as_tensor(grays, dtype=torch.float32).to(self.device), max_keypoints=cfg.max_keypoints)
+            return (lambda grays: sift.detect_and_describe(on_device(grays), max_keypoints=cfg.max_keypoints),
+                    sift.PEAK_BYTES_PER_PIXEL)
+        if cfg.feature_type in ("kaze", "orb", "brisk"):
+            from gtsfm_tpu_torch.frontend import classical, kaze
+
+            fn, peak = {"kaze": (kaze.detect_and_describe, kaze.PEAK_BYTES_PER_PIXEL),
+                        "orb": (classical.orb_detect_and_describe, classical.PEAK_BYTES_PER_PIXEL),
+                        "brisk": (classical.brisk_detect_and_describe, classical.PEAK_BYTES_PER_PIXEL),
+                        }[cfg.feature_type]
+            return lambda grays: fn(on_device(grays), max_keypoints=cfg.max_keypoints), peak
+        if cfg.feature_type in ("d2net", "disk"):
+            from gtsfm_tpu_torch.frontend.deep import d2net, disk
+
+            model = self._deep_model(cfg.feature_type)
+            div, peak = ((4, d2net.PEAK_BYTES_PER_PIXEL) if cfg.feature_type == "d2net"
+                         else (16, disk.PEAK_BYTES_PER_PIXEL))
+
+            def detect_rgb(grays: np.ndarray):
+                h = (grays.shape[1] // div) * div
+                w = (grays.shape[2] // div) * div
+                return model(np.repeat(grays[:, :h, :w, None], 3, axis=-1))
+
+            return detect_rgb, peak
         if cfg.feature_type != "superpoint":
-            raise NotImplementedError(f"feature_type {cfg.feature_type!r} " + _NOT_PORTED.format("'other front ends'"))
+            raise ValueError(f"unknown feature_type {cfg.feature_type}")
         from gtsfm_tpu_torch.frontend.deep import superpoint as sp_mod
 
         sp = sp_mod.SuperPoint(max_keypoints=cfg.max_keypoints,
@@ -162,21 +215,22 @@ class SceneOptimizer:
             w8 = (grays.shape[2] // 8) * 8
             return sp(grays[:, :h8, :w8])
 
-        return detect
+        return detect, None
 
     def compute_features(self, loader: LoaderBase):
         """Features of every image: (list of host SiftFeatures records,
         Cal3Bundler params (N, 5), image sizes [(w, h)]).
 
         Detection runs on chunks of same-shape images: ``detect_batch``
-        images per call when set. With None, SIFT takes
-        ``sift.images_per_batch(H, W)`` images (its per-level maps hold about
-        ``sift.PEAK_BYTES_PER_PIXEL`` bytes per pixel, so a chunk stays near
-        2 GiB), SuperPoint a whole shape group."""
+        images per call when set. With None, a detector with a per-pixel
+        peak estimate takes the images that keep a call near
+        ``sift.BATCH_BYTES`` (SIFT: ``sift.images_per_batch(H, W)``, since
+        its per-level maps hold about ``sift.PEAK_BYTES_PER_PIXEL`` bytes per
+        pixel), SuperPoint a whole shape group."""
         cfg = self.config.frontend
         cache = FeatureCache(os.path.join(self.config.cache_dir, "features"),
                              self.config.enable_cache)
-        detect = self._make_detector()
+        detect, peak_bytes_per_pixel = self._make_detector()
         tag = f"{cfg.feature_type}-{cfg.max_keypoints}-{self.config.max_resolution}"
         feats, cals, sizes, grays, misses = [], [], [], [], {}
         for i in range(len(loader)):
@@ -199,8 +253,8 @@ class SceneOptimizer:
         for shape, idxs in misses.items():
             if B is not None:
                 step = max(1, int(B))
-            elif cfg.feature_type == "sift":
-                step = sift.images_per_batch(*shape)
+            elif peak_bytes_per_pixel is not None:
+                step = max(1, sift.BATCH_BYTES // (peak_bytes_per_pixel * shape[0] * shape[1]))
             else:
                 step = len(idxs)
             for s in range(0, len(idxs), step):
@@ -253,7 +307,66 @@ class SceneOptimizer:
             return matcher(d1, d2, k1, k2, s1, s2, m1, m2, shape, shape)
         return matcher(d1, d2, k1, k2, m1, m2, shape, shape)
 
-    def run_two_view(self, feats, cals, pairs, return_stages: bool = False):
+    def run_image_correspondences(self, loader: LoaderBase, pairs):
+        """Detector-free matching (LoFTR) per pair + dedup aggregation: the
+        reference's ImageCorrespondenceGenerator path
+        (image_correspondence_generator.py:26 + keypoint_aggregator_dedup).
+
+        Each pair runs on the grayscale images cropped to multiples of 8.
+        Returns (per-image host SiftFeatures records padded to one keypoint
+        count, Cal3Bundler params (N, 5), image sizes, and the
+        ``precomputed`` (x1, x2, cm, match_idx) tensors on the device that
+        run_two_view takes in place of descriptor matching)."""
+        from gtsfm_tpu_torch.frontend import aggregator
+
+        n = len(loader)
+        model = self._deep_model("loftr")
+        grays, cals, sizes = [], [], []
+        for i in range(n):
+            img, cal = loader.get_image(i)
+            g = to_grayscale(img.value_array)
+            h8, w8 = (g.shape[0] // 8) * 8, (g.shape[1] // 8) * 8
+            grays.append(torch.as_tensor(g[:h8, :w8], dtype=torch.float32).to(self.device))
+            cals.append(cal)
+            sizes.append((img.width, img.height))
+
+        pair_kpts = {}
+        with record_function("features/loftr"):
+            for a, b in pairs:
+                out = model(grays[a], grays[b])
+                live = out.mask > 0
+                pair_kpts[(a, b)] = (out.kpts0[live].cpu().numpy(), out.kpts1[live].cpu().numpy())
+        kpts_per_image, match_indices = aggregator.aggregate_dedup(pair_kpts, n)
+
+        # Per-image keypoint tables padded to one count (no descriptors).
+        K = max(max((k.shape[0] for k in kpts_per_image), default=1), 1)
+        feats = []
+        for k in kpts_per_image:
+            uv = np.zeros((K, 2), np.float32)
+            m = np.zeros(K, np.float32)
+            uv[: k.shape[0]] = k
+            m[: k.shape[0]] = 1.0
+            feats.append(sift.SiftFeatures(uv=uv, scale=np.zeros(K, np.float32), response=m.copy(),
+                                           descriptor=np.zeros((K, 1), np.float32), mask=m))
+
+        # Correspondence arrays (P, Kp), per pair, padded; a floor of 16 slots
+        # because RANSAC samples 8-point minimal sets.
+        P = len(pairs)
+        Kp = max(max((m.shape[0] for m in match_indices.values()), default=1), 16)
+        x1 = np.zeros((P, Kp, 2), np.float32)
+        x2 = np.zeros((P, Kp, 2), np.float32)
+        cm = np.zeros((P, Kp), np.float32)
+        midx = np.full((P, K), -1, np.int32)
+        for k_p, (a, b) in enumerate(pairs):
+            m = match_indices[(a, b)]
+            x1[k_p, : m.shape[0]] = kpts_per_image[a][m[:, 0]]
+            x2[k_p, : m.shape[0]] = kpts_per_image[b][m[:, 1]]
+            cm[k_p, : m.shape[0]] = 1.0
+            midx[k_p, m[:, 0]] = m[:, 1]
+        dev = self.device
+        return feats, np.stack(cals), sizes, tuple(torch.as_tensor(t).to(dev) for t in (x1, x2, cm, midx))
+
+    def run_two_view(self, feats, cals, pairs, precomputed=None, return_stages: bool = False):
         """Batched matching + batched RANSAC + two-view BA over all pairs.
 
         Pairs go through in chunks of ``two_view.chunk_size``; the last chunk
@@ -265,20 +378,26 @@ class SceneOptimizer:
 
         Each image's descriptors, mask, keypoints and calibration go to the
         device once per call, and every chunk gathers its pairs there (the
-        JAX package's per-image stacks), whichever the matcher."""
+        JAX package's per-image stacks), whichever the matcher.
+        ``precomputed``: the (x1, x2, cm, match_idx) of the detector-free
+        path (run_image_correspondences), which replaces matching."""
         chunk = int(self.config.two_view.chunk_size)
         up = lambda arrs: torch.as_tensor(np.stack([np.asarray(a) for a in arrs]),  # noqa: E731
                                           dtype=torch.float32).to(self.device)
         stacks = dict(desc=up([f.descriptor for f in feats]), mask=up([f.mask for f in feats]),
                       uv=up([f.uv for f in feats]), response=up([f.response for f in feats]), cal=up(cals))
         if len(pairs) <= chunk:
-            return self._run_two_view_chunk(pairs, stacks, return_stages)
+            return self._run_two_view_chunk(pairs, stacks, return_stages, precomputed)
         results, idxs, stage_parts = [], [], {}
         for s in range(0, len(pairs), chunk):
             sub = list(pairs[s:s + chunk])
             n_real = len(sub)
             sub += [sub[-1]] * (chunk - n_real)
-            out = self._run_two_view_chunk(sub, stacks, return_stages)
+            pre = None
+            if precomputed is not None:
+                rows = torch.arange(s, s + chunk, device=self.device).clamp(max=s + n_real - 1)
+                pre = tuple(t[rows] for t in precomputed)
+            out = self._run_two_view_chunk(sub, stacks, return_stages, pre)
             results.append(_trim(out[0], n_real))
             idxs.append(out[1][:n_real])
             if return_stages:
@@ -290,7 +409,7 @@ class SceneOptimizer:
             return res, match_idx, {tag: _concat(parts) for tag, parts in stage_parts.items()}
         return res, match_idx
 
-    def _run_two_view_chunk(self, pairs, stacks, return_stages: bool = False):
+    def _run_two_view_chunk(self, pairs, stacks, return_stages: bool = False, precomputed=None):
         fe = self.config.frontend
         tv = self.config.two_view
         dev = self.device
@@ -301,18 +420,25 @@ class SceneOptimizer:
         def stack(field, side):
             return stacks[field][pa if side == 0 else pb]
 
-        d1, d2 = stack("desc", 0), stack("desc", 1)
-        m1, m2 = stack("mask", 0), stack("mask", 1)
-        k1, k2 = stack("uv", 0), stack("uv", 1)
         # Profiler spans (no cost unless a torch.profiler session is active):
         # chip_smoke.py attributes device time to them.
-        with record_function("two_view/match"):
-            if fe.matcher_type == "mutual_nn":
-                idx, mm = matching.mutual_nearest_matching(d1, d2, m1, m2, ratio_test=fe.ratio_test)
-            else:
-                idx, mm = self._deep_match(d1, d2, k1, k2, stack("response", 0), stack("response", 1), m1, m2)
-            x1, x2, cm = matching.matches_to_correspondences(idx, mm, k1, k2)
-        self._span_peak("two_view/match")
+        if precomputed is not None:
+            x1, x2, cm, idx = precomputed
+        else:
+            d1, d2 = stack("desc", 0), stack("desc", 1)
+            m1, m2 = stack("mask", 0), stack("mask", 1)
+            k1, k2 = stack("uv", 0), stack("uv", 1)
+            with record_function("two_view/match"):
+                if fe.matcher_type == "mutual_nn":
+                    # Binary descriptors (ORB, BRISK) match by Hamming distance
+                    # (cv2 NORM_HAMMING), the others by L2.
+                    match = (matching.match_hamming if fe.feature_type in ("orb", "brisk")
+                             else matching.mutual_nearest_matching)
+                    idx, mm = match(d1, d2, m1, m2, ratio_test=fe.ratio_test)
+                else:
+                    idx, mm = self._deep_match(d1, d2, k1, k2, stack("response", 0), stack("response", 1), m1, m2)
+                x1, x2, cm = matching.matches_to_correspondences(idx, mm, k1, k2)
+            self._span_peak("two_view/match")
 
         cal_a, cal_b = stack("cal", 0), stack("cal", 1)
         x1n = cameras.normalize_keypoints(cameras.K_from_bundler(cal_a)[:, None], x1)
@@ -508,13 +634,17 @@ class SceneOptimizer:
         logger.info("pairs: %d", len(pairs))
         t_s = self._stage("generate_pairs", t_s)
 
-        feats, cals, sizes = self.compute_features(loader)
+        if cfg.frontend.feature_type == "loftr":
+            feats, cals, sizes, precomputed = self.run_image_correspondences(loader, pairs)
+        else:
+            feats, cals, sizes = self.compute_features(loader)
+            precomputed = None
         t_feat = time.time()
         g = MetricsGroup("correspondence_metrics")
         g.add("num_keypoints_per_image", np.asarray([float(f.mask.sum()) for f in feats]))
         g.add("duration_sec", t_feat - t0)
         metrics.append(g)
-        t_s = self._stage("compute_features", t_s)
+        t_s = self._stage("run_image_correspondences" if precomputed is not None else "compute_features", t_s)
 
         # Two-view cache (reference TwoViewEstimatorCacher,
         # two_view_estimator_cacher.py:36): key from the first keypoints + config.
@@ -534,7 +664,8 @@ class SceneOptimizer:
             tv_stages = {"POST_ISP": res}  # earlier stages are not cached
             logger.info("two-view results loaded from cache")
         else:
-            res, match_idx, tv_stages = self.run_two_view(feats, cals, pairs, return_stages=True)
+            res, match_idx, tv_stages = self.run_two_view(feats, cals, pairs, precomputed=precomputed,
+                                                          return_stages=True)
             match_idx = match_idx.cpu().numpy()
             tv_cache.save(tv_key, dict(**{k: v.cpu().numpy() for k, v in res._asdict().items()},
                                        match_idx=match_idx))

@@ -139,9 +139,9 @@ def test_cpu_run_launches_no_kernel(checkpoints, tmp_path):
 
 def test_unported_options_raise(checkpoints, tmp_path):
     cfg = _configure(PipelineConfig(), checkpoints, tmp_path)
-    cfg.frontend.feature_type = "orb"  # SIFT and SuperPoint are ported; the other front ends not yet
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'other front ends'"):
-        SceneOptimizer(cfg, device="cpu").compute_features(SyntheticAerialLoader(**LOADER))
+    cfg.densify.enabled = True  # every front end is ported; densify not yet
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'densify'"):
+        SceneOptimizer(cfg, device="cpu").run(SyntheticAerialLoader(**LOADER))
 
 
 def test_superglue_run_two_view_parity(both, checkpoints, tmp_path, monkeypatch):

@@ -32,7 +32,12 @@ BRISK, FAST and Harris on the card against the CPU with match_hamming
 survey's renders (run_kaze, run_orb, run_brisk), D2-Net and DISK with
 seeded weights on the deep cell (deep_detectors), LoFTR's detector-free path
 on the deep cell and on the survey's 854 pairs at full width (loftr), and the
-runner CLI on a 12-image Olsson folder, also with ORB (runner_cli). Each
+runner CLI on a 12-image Olsson folder, also with ORB, and on a Hilti-layout
+folder of 20 fisheye rig renders (runner_cli). The rig path: SceneOptimizer.run
+on a HiltiLoader over a synthetic 100-pose fisheye rig with known features
+(rig_known: relative-pose priors in averaging and BA, the native fisheye BA
+stage, metric scale) and its back end on 6 rig poses on the card and on the
+CPU (rig_cpu_check). Each
 phase logs its seconds. Any failure raises and the
 exit code is non-zero. The last two lines of standard output
 are a JSON line of per-kernel numbers and the result line
@@ -1086,6 +1091,43 @@ CPU_CHECK_ROT_DEG = 0.01  # final rotations, card vs CPU (chordal, float64)
 CPU_CHECK_CENTRE = 1e-4  # final centres after the similarity, of the scene's extent
 
 
+def _card_and_cpu_runs(dev, loader, compute_features, two_view, config, out_root):
+    """SceneOptimizer.run with save_outputs on the card and on the CPU, with
+    compute_features and run_two_view replaced by the given features and
+    two-view result (tensors on the card): the results, the VIEWGRAPH
+    report's pairs and the seconds, by "card" and "cpu"."""
+    from gtsfm_tpu_torch.ops import ransac
+    from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
+
+    results, edges, seconds = {}, {}, {}
+    res, match_idx, stages = two_view
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        opt = SceneOptimizer(config(os.path.join(out_root, name)), device=d)
+        opt.compute_features = compute_features
+        moved = lambda r, d=d: ransac.TwoViewResult(*(t.to(d) for t in r))  # noqa: E731
+        opt.run_two_view = lambda *a, d=d, moved=moved, **k: (
+            moved(res), match_idx.to(d), {t: moved(s) for t, s in stages.items()})
+        t0 = time.perf_counter()
+        results[name] = opt.run(loader, save_outputs=True)
+        seconds[name] = time.perf_counter() - t0
+        with open(os.path.join(out_root, name, "result_metrics", "two_view_report_VIEWGRAPH.json")) as fh:
+            edges[name] = [(r["i1"], r["i2"]) for r in json.load(fh)]
+    return results, edges, seconds
+
+
+def _same_edges_and_tracks(g_card, g_cpu, edges):
+    """Whether the card's and the CPU's runs kept the same view-graph pairs,
+    largest component and averaging edges, and formed the same tracks
+    (count and every length, in order); the tracks' metrics by device."""
+    same_edges = edges["card"] == edges["cpu"] and all(
+        g_card[g][m] == g_cpu[g][m] for g, m in (("view_graph_metrics", "num_cameras_in_largest_cc"),
+                                                 ("translation_averaging_metrics", "num_total_edges")))
+    tracks = {k: g["data_association_metrics"] for k, g in (("card", g_card), ("cpu", g_cpu))}
+    same_tracks = tracks["card"]["num_tracks"] == tracks["cpu"]["num_tracks"] and np.array_equal(
+        tracks["card"]["track_lengths"], tracks["cpu"]["track_lengths"])
+    return same_edges, same_tracks, tracks
+
+
 def back_end_cpu_check(dev, num_images: int = 24, rows: int = 8):
     """The back end on the first images of the known-geometry survey, on the
     card and on the CPU, from one set of features and one two-view result
@@ -1100,7 +1142,6 @@ def back_end_cpu_check(dev, num_images: int = 24, rows: int = 8):
     each side's LM iterations per BA stage."""
     from gtsfm_tpu_torch.geometry.alignment import rotation_errors_deg
     from gtsfm_tpu_torch.loader.synthetic import SyntheticAerialLoader
-    from gtsfm_tpu_torch.ops import ransac
     from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
 
     loader = SyntheticAerialLoader(num_images=128, rows=rows)
@@ -1110,26 +1151,11 @@ def back_end_cpu_check(dev, num_images: int = 24, rows: int = 8):
     card = SceneOptimizer(known_scene_config(os.path.join(out_root, "two_view")), device=dev)
     feats, cals, _ = compute_features(loader)
     two_view = card.run_two_view(feats, cals, card.generate_pairs(loader), return_stages=True)
-    results, edges, seconds = {}, {}, {}
-    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
-        opt = SceneOptimizer(known_scene_config(os.path.join(out_root, name)), device=d)
-        opt.compute_features = compute_features
-        res, match_idx, stages = two_view
-        moved = lambda r: ransac.TwoViewResult(*(t.to(d) for t in r))  # noqa: E731
-        opt.run_two_view = lambda *a, **k: (moved(res), match_idx.to(d), {t: moved(s) for t, s in stages.items()})
-        t0 = time.perf_counter()
-        results[name] = opt.run(loader, save_outputs=True)
-        seconds[name] = time.perf_counter() - t0
-        with open(os.path.join(out_root, name, "result_metrics", "two_view_report_VIEWGRAPH.json")) as fh:
-            edges[name] = [(r["i1"], r["i2"]) for r in json.load(fh)]
+    results, edges, seconds = _card_and_cpu_runs(dev, loader, compute_features, two_view, known_scene_config,
+                                                 out_root)
     r_card, r_cpu = results["card"], results["cpu"]
     g_card, g_cpu = metric_groups(r_card), metric_groups(r_cpu)
-    same_edges = edges["card"] == edges["cpu"] and all(
-        g_card[g][m] == g_cpu[g][m] for g, m in (("view_graph_metrics", "num_cameras_in_largest_cc"),
-                                                 ("translation_averaging_metrics", "num_total_edges")))
-    tracks = {k: g["data_association_metrics"] for k, g in (("card", g_card), ("cpu", g_cpu))}
-    same_tracks = tracks["card"]["num_tracks"] == tracks["cpu"]["num_tracks"] and np.array_equal(
-        tracks["card"]["track_lengths"], tracks["cpu"]["track_lengths"])
+    same_edges, same_tracks, tracks = _same_edges_and_tracks(g_card, g_cpu, edges)
     live = (r_card.scene.camera_mask.cpu().numpy() > 0) & (r_cpu.scene.camera_mask.cpu().numpy() > 0)
     c_cpu = r_cpu.scene.wti.cpu().numpy()[live]
     extent = float(np.linalg.norm(c_cpu.max(0) - c_cpu.min(0)))
@@ -1210,6 +1236,420 @@ def write_olsson_folder(root: str, loader, indices) -> str:
         P[0, k] = K @ np.concatenate([wRi.T, -wRi.T @ wti[:, None]], 1)
     scipy.io.savemat(os.path.join(root, "data.mat"), {"P": P})
     return root
+
+
+# The synthetic rig: five equidistant fisheye cameras at 720 x 540 (the
+# Alphasense rig of the Hilti recordings), looking down over the survey's
+# terrain. Camera 2 (the body camera) looks back; 0 and 1 are a forward
+# stereo pair, 3 looks right and 4 left, so the camera pairs that overlap
+# are those the sequential_hilti regime matches
+# (gtsfm_tpu_torch/retriever/basic.py INTRA/INTER_RIG_VALID_PAIRS).
+RIG_SIZE = (720, 540)
+RIG_FOCAL = 352.0
+RIG_ALTITUDE = 4.0  # above the terrain's mean height
+RIG_STEP = 1.0  # path length between rig poses
+# (tilt axis in the body frame (x forward, y left, z up), tilt in deg, lever arm)
+RIG_CAMERAS = (((-0.26, 1.0, 0.0), 28.0, (0.10, -0.05, 0.0)),
+               ((0.26, 1.0, 0.0), 28.0, (0.10, 0.05, 0.0)),
+               ((0.0, -1.0, 0.0), 32.0, (-0.10, 0.0, 0.05)),
+               ((-1.0, 0.0, 0.0), 38.0, (0.0, -0.10, 0.0)),
+               ((1.0, 0.0, 0.0), 38.0, (0.0, 0.10, 0.0)))
+RIG_ODOMETRY_SIGMA = (1e-3, 1e-2)  # lidar constraints: rad, metres
+# Ground seen at more than this angle from the nadir is too grazing to give
+# texture: renders paint it flat grey and known_rig_features keeps no
+# landmark there.
+RIG_MAX_NADIR_DEG = 63.0
+
+
+def _axis_angle(axis, deg) -> np.ndarray:
+    from gtsfm_tpu_torch.loader.synthetic import _small_rotation
+
+    a = np.asarray(axis, np.float64)
+    return _small_rotation(a / np.linalg.norm(a) * np.radians(deg)).astype(np.float64)
+
+
+def rig_terrain():
+    """The survey loader whose terrain (height and albedo) the rig flies
+    over."""
+    from gtsfm_tpu_torch.loader.synthetic import SyntheticAerialLoader
+
+    return SyntheticAerialLoader(num_images=128, rows=8)
+
+
+def rig_geometry(n_rigs: int, seed: int = 0):
+    """Body (IMU) poses along a gently curving path over the terrain
+    (w_R_imu (n, 3, 3), w_t_imu (n, 3)), the cameras' mounting (imu_R_cam
+    (5, 3, 3), imu_t_cam (5, 3)) and their Cal3Fisheye params (5, 9) with
+    seeded k1..k4."""
+    rng = np.random.default_rng(seed)
+    nadir = np.diag([1.0, -1.0, -1.0])  # camera z down, x forward
+    imu_R_cam = np.stack([_axis_angle(ax, deg) @ nadir for ax, deg, _ in RIG_CAMERAS])
+    imu_t_cam = np.asarray([lever for *_, lever in RIG_CAMERAS], np.float64)
+    W, H = RIG_SIZE
+    ks = np.stack([rng.uniform(-0.03, 0.0, 5), rng.uniform(0.0, 0.006, 5), rng.uniform(-0.002, 0.0, 5),
+                   rng.uniform(0.0, 0.0005, 5)], -1)
+    cal9 = np.asarray([[RIG_FOCAL * (1 + 0.01 * rng.normal()), RIG_FOCAL * (1 + 0.01 * rng.normal()), 0.0,
+                        W / 2.0 + rng.normal(), H / 2.0 + rng.normal(), *k] for k in ks], np.float32)
+    s = np.arange(n_rigs) * RIG_STEP
+    yaw = 0.3 * np.sin(s / 25.0)
+    xy = np.stack([20.0 + np.cumsum(RIG_STEP * np.cos(yaw)), 30.0 + np.cumsum(RIG_STEP * np.sin(yaw))], -1)
+    w_t_imu = np.concatenate([xy, np.full((n_rigs, 1), RIG_ALTITUDE)], -1) + rng.normal(0, 0.05, (n_rigs, 3))
+    w_R_imu = np.stack([_axis_angle((0, 0, 1), np.degrees(y)) @ _axis_angle(rng.normal(size=3), 2.0)
+                        for y in yaw])
+    return w_R_imu, w_t_imu, imu_R_cam, imu_t_cam, cal9
+
+
+def _terrain_rays(terrain, R, c, d_cam):
+    """World points where camera rays d_cam (..., 3) from centre c with
+    rotation R meet the terrain (the survey loader's fixed-point march),
+    and the mask of rays that descend steeply enough for it to converge."""
+    d = d_cam @ R.T
+    dz = np.minimum(d[..., 2], -1e-6)
+    t = (0.0 - c[2]) / dz
+    for _ in range(12):
+        t = (terrain._height(c[0] + t * d[..., 0], c[1] + t * d[..., 1]) - c[2]) / dz
+    return c + t[..., None] * d, d[..., 2] < -np.cos(np.radians(RIG_MAX_NADIR_DEG)) * np.linalg.norm(d, axis=-1)
+
+
+def render_fisheye(terrain, R, c, cal9) -> np.ndarray:
+    """An equidistant fisheye render (uint8, H x W) of the terrain: the
+    survey loader's albedo and shading on rays from fisheye_calibrate;
+    rays too close to the horizon are flat grey."""
+    from gtsfm_tpu_torch.geometry import cameras
+    from gtsfm_tpu_torch.loader.synthetic import _value_noise
+
+    W, H = RIG_SIZE
+    ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    uv = torch.as_tensor(np.stack([xs, ys], -1), dtype=torch.float64)
+    xn = cameras.fisheye_calibrate(torch.as_tensor(cal9, dtype=torch.float64), uv).numpy()
+    P, ok = _terrain_rays(terrain, np.asarray(R, np.float64), np.asarray(c, np.float64),
+                          np.concatenate([xn, np.ones((H, W, 1))], -1))
+    px, py = P[..., 0], P[..., 1]
+    albedo = np.zeros_like(px, dtype=np.float32)
+    for k in range(terrain._tex_n_oct):
+        freq = terrain._tex_base_freq * (2.0**k)
+        albedo += 0.9**k * _value_noise(px * freq, py * freq, terrain._tex_salt + k)
+    albedo = (albedo - albedo[ok].mean()) / max(float(albedo[ok].std()), 1e-6)
+    albedo = np.clip(albedo * 0.22 + 0.55, 0.0, 1.0)
+    shade = 0.75 + 0.25 * (terrain._height(px, py) / max(terrain._terrain_amp, 1e-9) + 0.5)
+    return np.where(ok, np.clip(albedo * shade * 255.0, 0, 255), 128).astype(np.uint8)
+
+
+def _render_rig_images(args):
+    """Worker: fisheye renders of the rig folder's images at ``indices``,
+    written as JPEG."""
+    root, n_rigs, indices = args
+    sys.path.insert(0, ROOT)
+    from PIL import Image as PILImage
+
+    terrain = rig_terrain()
+    w_R_imu, w_t_imu, imu_R_cam, imu_t_cam, cal9 = rig_geometry(n_rigs)
+    for i in indices:
+        r, k = divmod(i, 5)
+        R, c = w_R_imu[r] @ imu_R_cam[k], w_R_imu[r] @ imu_t_cam[k] + w_t_imu[r]
+        PILImage.fromarray(render_fisheye(terrain, R, c, cal9[k])).save(
+            os.path.join(root, "images", f"{i}.jpg"), quality=95)
+
+
+def write_hilti_folder(root: str, n_rigs: int, render: bool = False) -> str:
+    """A Hilti-layout dataset of the synthetic rig (what HiltiLoader reads):
+    Kalibr calibration/*.yaml (intrinsics, distortion_coeffs, T_cam_imu),
+    lidar/fastlio2.g2o (VERTEX_SE3:QUAT IMU poses), lidar/constraints.txt
+    (a Constraint between consecutive rig poses, noise drawn to its
+    covariance) and images/{rig * 5 + cam}.jpg: fisheye renders of the
+    terrain with ``render``, else flat grey."""
+    import yaml
+    from PIL import Image as PILImage
+
+    from gtsfm_tpu_torch.common.constraint import Constraint
+    from gtsfm_tpu_torch.geometry import lie
+    from gtsfm_tpu_torch.loader.hilti import CAM_IDX_TO_KALIBR_FILE_MAP
+
+    for sub in ("calibration", "lidar", "images"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    w_R_imu, w_t_imu, imu_R_cam, imu_t_cam, cal9 = rig_geometry(n_rigs)
+    files = {}
+    for k in range(5):
+        T = np.eye(4)  # T_cam_imu = inv(imu_T_cam)
+        T[:3, :3], T[:3, 3] = imu_R_cam[k].T, -imu_R_cam[k].T @ imu_t_cam[k]
+        fx, fy, _, cx, cy, *dist = (float(v) for v in cal9[k])
+        files.setdefault(CAM_IDX_TO_KALIBR_FILE_MAP[k], {})[f"cam{k if k < 2 else 0}"] = dict(
+            camera_model="pinhole", distortion_model="equidistant", intrinsics=[fx, fy, cx, cy],
+            distortion_coeffs=dist, resolution=list(RIG_SIZE), T_cam_imu=T.tolist())
+    for name, data in files.items():
+        with open(os.path.join(root, "calibration", name), "w") as fh:
+            yaml.safe_dump(data, fh)
+    with open(os.path.join(root, "lidar", "fastlio2.g2o"), "w") as fh:
+        for r in range(n_rigs):
+            w, x, y, z = lie.quat_from_so3(torch.as_tensor(w_R_imu[r])).tolist()
+            fh.write(f"VERTEX_SE3:QUAT {r} " + " ".join(repr(float(v)) for v in w_t_imu[r])
+                     + f" {x!r} {y!r} {z!r} {w!r}\n")
+    rng = np.random.default_rng(1)
+    s_rot, s_t = RIG_ODOMETRY_SIGMA
+    cov = np.diag([s_rot**2] * 3 + [s_t**2] * 3)
+    constraints = []
+    for a in range(n_rigs - 1):
+        aRb = w_R_imu[a].T @ w_R_imu[a + 1]
+        atb = w_R_imu[a].T @ (w_t_imu[a + 1] - w_t_imu[a])
+        noise = lie.so3_exp(torch.as_tensor(rng.normal(0, s_rot, 3))).numpy()
+        constraints.append(Constraint(a=a, b=a + 1, aRb=aRb @ noise, atb=atb + rng.normal(0, s_t, 3), cov=cov,
+                                      counts=np.full((5, 5), 50.0)))
+    Constraint.write(os.path.join(root, "lidar", "constraints.txt"), constraints)
+    n = 5 * n_rigs
+    if render:
+        workers = max(1, min(8, os.cpu_count() or 1, n))
+        jobs = [(root, n_rigs, list(range(w, n, workers))) for w in range(workers)]
+        with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+            list(ex.map(_render_rig_images, jobs))
+    else:
+        grey = PILImage.fromarray(np.full(RIG_SIZE[::-1], 128, np.uint8))
+        for i in range(n):
+            grey.save(os.path.join(root, "images", f"{i}.jpg"))
+    return root
+
+
+def known_rig_features(loader, max_keypoints: int = 2048, keep: float = 0.7, density: float = 12.0,
+                       uv_noise_px: float = 0.5, desc_noise: float = 0.05, dim: int = 256, seed: int = 0):
+    """known_scene_features for a HiltiLoader folder of the synthetic rig:
+    terrain landmarks around the path projected through each camera's
+    ground-truth pose and Cal3Fisheye (project_fisheye), seen within
+    RIG_MAX_NADIR_DEG of the nadir (as the renders' texture), 0.5 px noise,
+    clutter in the free slots. Returns the function and the landmark
+    count."""
+    from gtsfm_tpu_torch.frontend.sift import SiftFeatures
+    from gtsfm_tpu_torch.geometry import cameras
+
+    rng = np.random.default_rng(seed)
+    terrain = rig_terrain()
+    W, H = RIG_SIZE
+    img0 = loader.get_image_full_res(0)
+    if (img0.width, img0.height) != RIG_SIZE or max(W, H) > loader._max_resolution:
+        raise ValueError("known_rig_features assumes the rig's images at full resolution")
+    poses = [loader.get_camera_pose(i) for i in range(len(loader))]
+    centres = np.stack([c for _, c in poses])
+    margin = 4.0 * RIG_ALTITUDE
+    lo, hi = centres[:, :2].min(0) - margin, centres[:, :2].max(0) + margin
+    n_lm = int(density * np.prod(hi - lo))
+    xy = rng.uniform(lo, hi, (n_lm, 2))
+    X = torch.as_tensor(np.concatenate([xy, terrain._height(xy[:, 0], xy[:, 1])[:, None]], -1))
+    priority = rng.random(n_lm)
+    unit = lambda d: (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)  # noqa: E731
+    desc = unit(rng.normal(size=(n_lm, dim)))
+    n_keep = int(keep * max_keypoints)
+    feats, cals = [], []
+    for i, (R, c) in enumerate(poses):
+        cal9 = torch.as_tensor(loader.get_fisheye_calibration(i), dtype=torch.float64)
+        uv, depth = cameras.project_fisheye(torch.as_tensor(R, dtype=torch.float64),
+                                            torch.as_tensor(c, dtype=torch.float64), cal9, X)
+        uv, depth = uv.numpy(), depth.numpy()
+        ray = X.numpy() - c
+        steep = -ray[:, 2] > np.cos(np.radians(RIG_MAX_NADIR_DEG)) * np.linalg.norm(ray, axis=1)
+        vis = np.nonzero((depth > 0) & steep & np.all((uv >= 0) & (uv < [W, H]), axis=1))[0]
+        vis = vis[np.argsort(-priority[vis], kind="stable")][:n_keep]
+        n_clutter = max_keypoints - len(vis)
+        kp = np.concatenate([uv[vis] + rng.normal(0, uv_noise_px, (len(vis), 2)),
+                             rng.uniform([0, 0], [W, H], (n_clutter, 2))])
+        d = unit(np.concatenate([desc[vis] + rng.normal(0, desc_noise, (len(vis), dim)),
+                                 rng.normal(size=(n_clutter, dim))]))
+        perm = rng.permutation(max_keypoints)
+        feats.append(SiftFeatures(uv=kp[perm].astype(np.float32), scale=np.zeros(max_keypoints, np.float32),
+                                  response=np.ones(max_keypoints, np.float32), descriptor=d[perm],
+                                  mask=np.ones(max_keypoints, np.float32)))
+        cals.append(loader.get_camera_intrinsics_full_res(i))
+    sizes = [RIG_SIZE] * len(loader)
+
+    def compute_features(_loader):
+        return feats, np.stack(cals), sizes
+
+    return compute_features, n_lm
+
+
+def rig_config(output_root: str):
+    """known_scene_config with the rig window regime (three rig poses
+    ahead; HiltiLoader.is_valid_pair keeps pairs two apart)."""
+    cfg = known_scene_config(output_root)
+    cfg.retriever.regime, cfg.retriever.max_frame_lookahead = "sequential_hilti", 3
+    return cfg
+
+
+@contextlib.contextmanager
+def float64_stage_memory():
+    """Records, for each ba.lm_optimize_float64 call inside the block (the
+    last stage of global BA and the native fisheye stage), the bytes
+    allocated when it starts and the peak when it ends, without resetting
+    the peak counter (the optimizer's stage peaks stay as they are): where
+    the peak rose during the call, it is the call's own peak. Yields the
+    list of records (GB)."""
+    from gtsfm_tpu_torch.bundle import ba
+
+    records, orig = [], ba.lm_optimize_float64
+
+    def recorded(scene, cfg=ba.BAConfig(), priors=None):
+        torch.cuda.synchronize()
+        start, peak0 = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+        out = orig(scene, cfg, priors)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        records.append(dict(cameras=scene.num_cameras_padded, measurements=scene.meas_uv.shape[0],
+                            start_gb=start / 1e9, peak_gb=peak / 1e9, own_peak=peak > peak0))
+        return out
+
+    ba.lm_optimize_float64 = recorded
+    try:
+        yield records
+    finally:
+        ba.lm_optimize_float64 = orig
+
+
+def rig_known(dev, n_rigs: int = 100):
+    """SceneOptimizer.run on a HiltiLoader over the synthetic rig at full
+    width: 5 x n_rigs fisheye images (720 x 540, flat), known_rig_features
+    (2048 slots, 256-dim descriptors) in place of compute_features, and
+    everything after them for real: matching, RANSAC and two-view BA on the
+    virtual-pinhole keypoints, the prior edges, rig translation averaging,
+    global BA with about 1,000 hard and n_rigs - 1 soft priors, the native
+    fisheye stage and the OPENCV_FISHEYE export. A cold and a warm run.
+    Bars: >= 95% of the cameras, rotation error after Sim(3) max <= 1 deg
+    and median <= 0.1 deg, the Sim(3) scale within 1% of 1 (the priors are
+    metric), mean reprojection <= 1 px (fisheye pixels), every BA stage
+    with iterations, and OPENCV_FISHEYE cameras only."""
+    from gtsfm_tpu_torch.bundle import ba
+    from gtsfm_tpu_torch.common.pose_prior import PosePriorType
+    from gtsfm_tpu_torch.geometry.alignment import umeyama_sim3
+    from gtsfm_tpu_torch.loader.hilti import HiltiLoader
+    from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
+
+    base = os.path.join(ROOT, "build", "chip_smoke_rig_known")
+    shutil.rmtree(base, ignore_errors=True)
+    t0 = time.perf_counter()
+    loader = HiltiLoader(write_hilti_folder(os.path.join(base, "data"), n_rigs))
+    compute_features, n_landmarks = known_rig_features(loader)
+    t_setup = time.perf_counter() - t0
+    out_root = os.path.join(base, "out")
+    opt = SceneOptimizer(rig_config(out_root), device=dev)
+    opt.compute_features = compute_features
+    runs, results = {}, {}
+    for name in ("cold", "warm"):
+        t0 = time.perf_counter()
+        with float64_stage_memory() as f64_stages:
+            results[name] = opt.run(loader, save_outputs=True)
+        torch.cuda.synchronize()
+        runs[name] = dict(seconds=time.perf_counter() - t0, stage_seconds=dict(opt.stage_seconds),
+                          stage_peak_gb={k: v / 1e9 for k, v in opt.stage_peak_bytes.items()},
+                          float64_stages=f64_stages)
+        log(f"rig_known {name}: {runs[name]['seconds']:.2f} s; stage seconds "
+            f"{json.dumps({k: round(v, 4) for k, v in opt.stage_seconds.items()})}; peak GB per stage and span "
+            f"{json.dumps({k: round(v, 3) for k, v in runs[name]['stage_peak_gb'].items()})}; float64 BA stages "
+            f"(global final, fisheye_native) {json.dumps(f64_stages)}")
+    result = results["cold"]
+    final = result.scene
+    groups = metric_groups(result)
+    n_img = len(loader)
+    rot = np.asarray(groups["ba_pose_error_metrics"]["rotation_angle_error_deg"])
+    wRi_gt, wti_gt, _ = loader.get_all_poses()
+    live = final.camera_mask.cpu().numpy() > 0
+    s, _, _ = umeyama_sim3(final.wti.cpu().numpy()[live], wti_gt[live])
+    ba_metrics = groups["bundle_adjustment_metrics"]
+    n_stages = len(opt.config.multi_view.ba_reproj_thresholds_px) + 1
+    ba_stages = [dict(stage=si, **{k: ba_metrics.get(f"stage{si}_{k}") for k in (
+        "iterations", "final_cost", "wall_lm_sec", "lm_iters_per_sec")}) for si in range(n_stages)]
+    priors = loader.get_relative_pose_priors()
+    hard = sum(p.type == PosePriorType.HARD_CONSTRAINT for p in priors.values())
+    with open(os.path.join(out_root, "ba_output", "cameras.txt")) as fh:
+        models = {line.split()[1] for line in fh if not line.startswith("#")}
+    live_meas = (final.meas_mask > 0) & (final.track_mask[final.meas_track] > 0)
+    observed = int(torch.unique(final.meas_cam[live_meas]).numel())
+    out = dict(
+        images=n_img, landmarks=n_landmarks, setup_s=t_setup,
+        pairs=groups["retriever_metrics"]["num_retrieved_image_pairs"],
+        verified_pairs=groups["two_view_metrics"]["num_verified_pairs"],
+        edges_kept=groups["view_graph_metrics"]["num_retained_edges"],
+        averaging_edges=groups["translation_averaging_metrics"]["num_total_edges"],
+        priors_hard=hard, priors_soft=len(priors) - hard, tracks=groups["data_association_metrics"]["num_tracks"],
+        cameras=final.num_cameras(), cameras_observed=observed, tracks_after_ba=final.num_tracks(),
+        ba_solve="dense" if ba._use_dense_schur(final) else "pcg", rot_err_max_deg=float(rot.max()),
+        rot_err_median_deg=float(np.median(rot)), sim3_scale=float(s),
+        mean_reproj_px=float(final.mean_reprojection_error()), ba_stages=ba_stages, camera_models=sorted(models),
+        runs=runs)
+    log(f"rig_known: {n_img} images ({n_rigs} rig poses), {n_landmarks} landmarks, {out['pairs']} pairs, "
+        f"{out['verified_pairs']} verified, {out['edges_kept']} kept, {out['averaging_edges']} averaging edges with "
+        f"the priors ({hard} hard, {out['priors_soft']} soft priors), {out['tracks']} tracks; BA solve "
+        f"{out['ba_solve']}; final scene {out['cameras']} cameras ({observed} with measurements), "
+        f"{out['tracks_after_ba']} tracks, mean "
+        f"reprojection {out['mean_reproj_px']:.4f} px (fisheye); rotation error after Sim(3) max "
+        f"{out['rot_err_max_deg']:.4f} deg, median {out['rot_err_median_deg']:.4f} deg, Sim(3) scale "
+        f"{out['sim3_scale']:.6f}; cameras.txt models {out['camera_models']}; setup {t_setup:.2f} s")
+    for st in ba_stages:
+        log(f"  BA stage {st['stage']}{' (fisheye_native)' if st['stage'] == n_stages - 1 else ''}: "
+            f"{st['iterations']} LM iterations in {st['wall_lm_sec']:.3f} s ({st['lm_iters_per_sec']:.2f} it/s), "
+            f"final cost {st['final_cost']:.2f}")
+    if out["cameras"] < np.ceil(0.95 * n_img):
+        raise AssertionError(f"only {out['cameras']}/{n_img} cameras in the final scene")
+    if not (out["rot_err_max_deg"] <= 1.0 and out["rot_err_median_deg"] <= 0.1):
+        raise AssertionError(f"rotation errors too large: {out['rot_err_max_deg']}, {out['rot_err_median_deg']}")
+    if not abs(out["sim3_scale"] - 1.0) <= 0.01:
+        raise AssertionError(f"Sim(3) scale {out['sim3_scale']}: the metric scale was lost")
+    if not out["mean_reproj_px"] <= 1.0:
+        raise AssertionError(f"mean reprojection error {out['mean_reproj_px']} px > 1 px")
+    if not all(st["iterations"] and st["iterations"] > 0 for st in ba_stages):
+        raise AssertionError(f"BA stages did not report iterations: {ba_stages}")
+    if out["camera_models"] != ["OPENCV_FISHEYE"]:
+        raise AssertionError(f"cameras.txt holds {out['camera_models']}")
+    return out
+
+
+def rig_cpu_check(dev, n_rigs: int = 6):
+    """The rig back end on a 6-rig folder (30 images), on the card and on
+    the CPU, from one set of known_rig_features and one two-view result
+    (computed on the card from their virtual-pinhole undistortion): kept
+    edges and tracks identical, final rotations within CPU_CHECK_ROT_DEG and
+    raw camera centres (the priors fix the gauge's scale) within
+    CPU_CHECK_CENTRE of the extent."""
+    from gtsfm_tpu_torch.loader.hilti import HiltiLoader
+    from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
+
+    base = os.path.join(ROOT, "build", "chip_smoke_rig_cpu_check")
+    shutil.rmtree(base, ignore_errors=True)
+    loader = HiltiLoader(write_hilti_folder(os.path.join(base, "data"), n_rigs))
+    compute_features, _ = known_rig_features(loader)
+    card = SceneOptimizer(rig_config(os.path.join(base, "two_view")), device=dev)
+    feats, cals, _ = compute_features(loader)
+    feats_u, cals_u, _ = card._undistort_fisheye(loader, feats, cals)
+    pairs = card.generate_pairs(loader)
+    two_view = card.run_two_view(feats_u, cals_u, pairs, return_stages=True)
+    results, edges, seconds = _card_and_cpu_runs(dev, loader, compute_features, two_view, rig_config, base)
+    r_card, r_cpu = results["card"], results["cpu"]
+    g_card, g_cpu = metric_groups(r_card), metric_groups(r_cpu)
+    same_edges, same_tracks, tracks = _same_edges_and_tracks(g_card, g_cpu, edges)
+    inliers = [g["translation_averaging_metrics"]["num_inlier_edges"] for g in (g_card, g_cpu)]
+    same_edges = same_edges and inliers[0] == inliers[1]
+    live = (r_card.scene.camera_mask.cpu().numpy() > 0) & (r_cpu.scene.camera_mask.cpu().numpy() > 0)
+    c_cpu = r_cpu.scene.wti.cpu().numpy()[live]
+    extent = float(np.linalg.norm(c_cpu.max(0) - c_cpu.min(0)))
+    diffs = {}
+    for stage, (Ra, Rb, ta, tb) in {
+        "pre_ba": (r_card.wRi_pre_ba, r_cpu.wRi_pre_ba, r_card.wti_pre_ba, r_cpu.wti_pre_ba),
+        "final": tuple(x.cpu().numpy() for x in (r_card.scene.wRi, r_cpu.scene.wRi,
+                                                 r_card.scene.wti, r_cpu.scene.wti)),
+    }.items():
+        Ra, Rb, ta, tb = Ra[live], Rb[live], ta[live], tb[live]
+        diffs[stage] = dict(rot_max_deg=float(rot_errors_deg(Ra, Rb).max()),
+                            centre_max_rel=float(np.abs(ta - tb).max()) / extent)
+    ba_costs = {k: {m: v for m, v in g["bundle_adjustment_metrics"].items() if m.endswith(("_final_cost",
+                                                                                           "_iterations"))}
+                for k, g in (("card", g_card), ("cpu", g_cpu))}
+    rot, centre = diffs["final"]["rot_max_deg"], diffs["final"]["centre_max_rel"]
+    log(f"rig_cpu_check: {len(loader)} images, {len(pairs)} pairs, {len(edges['card'])} view-graph edges "
+        f"(identical: {same_edges}), {tracks['card']['num_tracks']} tracks (identical: {same_tracks}), "
+        f"{int(live.sum())} cameras; card vs CPU, raw {json.dumps(diffs)} (centres relative to the extent "
+        f"{extent:.3f}; limits: rot_max_deg {CPU_CHECK_ROT_DEG}, centre_max_rel {CPU_CHECK_CENTRE}); BA stages "
+        f"{json.dumps(ba_costs, default=float)}; seconds card {seconds['card']:.2f}, CPU {seconds['cpu']:.2f}")
+    if not (same_edges and same_tracks):
+        raise AssertionError("the rig back end keeps other edges or tracks on the card than on the CPU")
+    if not (rot <= CPU_CHECK_ROT_DEG and centre <= CPU_CHECK_CENTRE):
+        raise AssertionError("the rig back end's poses on the card disagree with the CPU")
+    return dict(images=len(loader), pairs=len(pairs), edges=len(edges["card"]), tracks=tracks["card"]["num_tracks"],
+                diffs=diffs, ba=ba_costs, seconds=seconds)
 
 
 SIFT_FILES = ("ba_output/cameras.txt", "ba_output/images.txt", "ba_output/points3D.txt",
@@ -1879,7 +2319,9 @@ def runner_cli(num_images: int = 12):
     data.mat) of a two-row survey, written under build/, then with
     ``--loader colmap`` on the model it wrote and the same images, then with
     ``--override frontend.feature_type=orb`` on the Olsson folder: the DONE
-    lines and the model files."""
+    lines and the model files. Last, ``--loader hilti`` (the rig window
+    regime) on a Hilti-layout folder of 4 rig poses' fisheye renders: the
+    DONE line with every camera and OPENCV_FISHEYE cameras."""
     from gtsfm_tpu_torch.runner import __main__ as runner
 
     root = os.path.join(ROOT, "build", "chip_smoke_runner")
@@ -1905,6 +2347,26 @@ def runner_cli(num_images: int = 12):
         if rc != 0 or len(done) != 1 or not done[0].startswith(f"DONE: {num_images} cameras") or missing:
             raise AssertionError(f"runner CLI {name}: rc {rc}, {done}, missing {missing}")
         outs[name] = dict(seconds=seconds, done=done[0], files=len(files))
+    n_rigs = 4
+    t0 = time.perf_counter()
+    hilti = write_hilti_folder(os.path.join(root, "hilti"), n_rigs, render=True)
+    render_s = time.perf_counter() - t0
+    out = os.path.join(root, "results_hilti")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = runner.main(["--loader", "hilti", "--dataset_root", hilti, "--output_root", out, "--no_cache",
+                          "--override", "save_plots=false", "--override", "retriever.regime=sequential_hilti"])
+    seconds = time.perf_counter() - t0
+    done = [line for line in buf.getvalue().splitlines() if line.startswith("DONE:")]
+    with open(os.path.join(out, "ba_output", "cameras.txt")) as fh:
+        models = [line.split()[1] for line in fh if not line.startswith("#")]
+    log(f"runner_cli hilti: {5 * n_rigs} fisheye renders ({render_s:.2f} s to render), rc {rc}, {seconds:.2f} s: "
+        f"{done}; cameras.txt models {sorted(set(models))}")
+    if rc != 0 or len(done) != 1 or not done[0].startswith(f"DONE: {5 * n_rigs} cameras") or \
+            set(models) != {"OPENCV_FISHEYE"}:
+        raise AssertionError(f"runner CLI hilti: rc {rc}, {done}, camera models {sorted(set(models))}")
+    outs["hilti"] = dict(seconds=seconds, render_s=render_s, done=done[0])
     return dict(images=num_images, **outs)
 
 
@@ -1955,6 +2417,8 @@ def main() -> int:
     known = phase("back_end_known", back_end_known, dev)
     sg_known = phase("superglue_known", superglue_known, dev)
     cpu_check = phase("back_end_cpu_check", back_end_cpu_check, dev)
+    rig = phase("rig_known", rig_known, dev)
+    rig_check = phase("rig_cpu_check", rig_cpu_check, dev)
     survey = phase("render_survey", survey_loader, 128, 8)
     sift_run = phase("run_sift", run_sift, dev, survey)
     unified = phase("run_unified", run_unified, dev, survey, sift_run)
@@ -2002,7 +2466,8 @@ def main() -> int:
                                                           "stages", "launches")},
                     "profile": profile, "cross_check": cross, "known_geometry": geo,
                     "checks": checks, "run_deep": deep, "back_end_known": known,
-                    "back_end_cpu_check": cpu_check, "run_sift": sift_run, "sift_cpu_check": sift_check,
+                    "back_end_cpu_check": cpu_check, "rig_known": rig, "rig_cpu_check": rig_check,
+                    "run_sift": sift_run, "sift_cpu_check": sift_check,
                     "runner_cli": cli, "superglue_cpu_check": sg_check, "lightglue_adaptive": adaptive,
                     "verifiers_check": zoo, "superglue_known": sg_known, "run_unified": unified,
                     "retrieval": retrieved, "classical_cpu_check": classical_check,

@@ -5,7 +5,8 @@ gtsfm/common/gtsfm_data.py:24). Cameras, points and the flat measurement
 view live in padded tensors on one device, with the JAX package's padding
 (``_next_bucket``) so shapes match between the packages:
 
-  * cameras:      wRi (N,3,3), wti (N,3), cal (N,5) Cal3Bundler, camera_mask (N,)
+  * cameras:      wRi (N,3,3), wti (N,3), cal (N,5) Cal3Bundler or (N,9)
+                  Cal3Fisheye, camera_mask (N,)
   * points:       points (T,3), track_mask (T,)
   * measurements: meas_cam (M,), meas_track (M,), meas_uv (M,2), meas_mask (M,)
 
@@ -29,7 +30,7 @@ class SceneData:
 
     wRi: torch.Tensor  # (N, 3, 3) camera-to-world rotations
     wti: torch.Tensor  # (N, 3) camera centers (world)
-    cal: torch.Tensor  # (N, 5) Cal3Bundler params (f, k1, k2, u0, v0)
+    cal: torch.Tensor  # (N, 5) Cal3Bundler (f, k1, k2, u0, v0) or (N, 9) Cal3Fisheye
     camera_mask: torch.Tensor  # (N,) 1.0 for live cameras
     points: torch.Tensor  # (T, 3) triangulated 3D points
     track_mask: torch.Tensor  # (T,) 1.0 for live tracks
@@ -66,10 +67,11 @@ class SceneData:
 
     def reprojection_errors(self) -> tuple[torch.Tensor, torch.Tensor]:
         """Per-measurement reprojection error in pixels (masked entries -> 0)
-        and depth (reference GtsfmData.get_scene_reprojection_errors)."""
+        and depth, through the camera model of the calibration's width
+        (reference GtsfmData.get_scene_reprojection_errors)."""
         from gtsfm_tpu_torch.geometry import cameras
 
-        uv_pred, depth = cameras.project_bundler(
+        uv_pred, depth = cameras.project_camera(
             self.wRi[self.meas_cam], self.wti[self.meas_cam], self.cal[self.meas_cam],
             self.points[self.meas_track])
         err = torch.linalg.norm(uv_pred - self.meas_uv, dim=-1)

@@ -1,6 +1,7 @@
 """COLMAP text-model read/write (cameras.txt / images.txt / points3D.txt).
 
-Port of gtsfm_tpu/io/colmap_io.py, pinhole (Cal3Bundler -> RADIAL) only.
+Port of gtsfm_tpu/io/colmap_io.py (Cal3Bundler -> RADIAL, Cal3Fisheye ->
+OPENCV_FISHEYE).
 Feature-parity with reference gtsfm/utils/io.py:162 (export_model_as_colmap_text),
 :243 (read_cameras_txt), :339 (read_images_txt), :452 (read_points_txt) so the
 two frameworks' outputs are directly comparable and the ColmapLoader can
@@ -32,8 +33,10 @@ def _R_from_quat(q: np.ndarray) -> np.ndarray:
 
 
 def write_cameras_txt(path: str, cal: np.ndarray, image_sizes: list[tuple[int, int]], shared: bool = False):
-    """cal: (N, 5) Cal3Bundler params; image_sizes: [(w, h)]. Writes RADIAL
-    model (f, cx, cy, k1, k2) which maps 1:1 onto Cal3Bundler."""
+    """cal: (N, 5) Cal3Bundler or (N, 9) Cal3Fisheye params; image_sizes:
+    [(w, h)]. Writes the RADIAL model (f, cx, cy, k1, k2), which maps 1:1
+    onto Cal3Bundler, or OPENCV_FISHEYE (fx, fy, cx, cy, k1, k2, k3, k4; the
+    equidistant model in both)."""
     n = 1 if shared else cal.shape[0]
     with open(path, "w") as f:
         f.write("# Camera list with one line of data per camera:\n")
@@ -41,8 +44,12 @@ def write_cameras_txt(path: str, cal: np.ndarray, image_sizes: list[tuple[int, i
         f.write(f"# Number of cameras: {n}\n")
         for i in range(n):
             w, h = image_sizes[i]
-            fx, k1, k2, cx, cy = [float(v) for v in cal[i]]
-            f.write(f"{i + 1} RADIAL {w} {h} {fx} {cx} {cy} {k1} {k2}\n")
+            if cal.shape[-1] == 9:
+                fx, fy, _, cx, cy, k1, k2, k3, k4 = [float(v) for v in cal[i]]
+                f.write(f"{i + 1} OPENCV_FISHEYE {w} {h} {fx} {fy} {cx} {cy} {k1} {k2} {k3} {k4}\n")
+            else:
+                fx, k1, k2, cx, cy = [float(v) for v in cal[i]]
+                f.write(f"{i + 1} RADIAL {w} {h} {fx} {cx} {cy} {k1} {k2}\n")
 
 
 def write_images_txt(
@@ -183,11 +190,18 @@ def read_images_txt(path: str):
     """Returns (image_id -> (wRi, wti, camera_id, name), sorted image ids)."""
     images = {}
     with open(path) as f:
-        lines = [l.rstrip("\n") for l in f]
-    data_lines = [l for l in lines if l.strip() and not l.strip().startswith("#")]
-    # images.txt alternates pose line / points2D line.
-    for k in range(0, len(data_lines), 2):
-        toks = data_lines[k].split()
+        lines = [l.strip() for l in f]
+    # images.txt alternates pose line / points2D line; the points2D line of an
+    # image without measurements is empty (the JAX package's reader drops
+    # empty lines and then pairs the next image's pose with a points line).
+    pose_lines, k = [], 0
+    while k < len(lines):
+        if lines[k] and not lines[k].startswith("#"):
+            pose_lines.append(lines[k])
+            k += 1  # its points2D line, possibly empty
+        k += 1
+    for line in pose_lines:
+        toks = line.split()
         img_id = int(toks[0])
         q = np.asarray([float(v) for v in toks[1:5]])
         t = np.asarray([float(v) for v in toks[5:8]])

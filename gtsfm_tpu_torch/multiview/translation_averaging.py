@@ -34,9 +34,6 @@ HUBER_K = 1.345
 MAX_TRACK_MEASUREMENTS_PER_CAMERA = 12  # reference averaging_1dsfm.py:56-58
 MIN_TRACK_LEN_FOR_AVERAGING = 3
 
-_NOT_PORTED = "not ported to gtsfm_tpu_torch yet: ROADMAP queue 1, {}"
-
-
 def sample_projection_directions(
     measurements: np.ndarray,  # (M, 3) unit directions
     num_samples: int,
@@ -185,28 +182,45 @@ def _recover_translations_gn(
     num_nodes: int,
     iters: int = 60,
     gn_iters: int = 15,
+    is_metric: torch.Tensor | None = None,  # (E,) {0,1}: u_meas is a full displacement
+    sigma_e: torch.Tensor | None = None,  # (E,) per-edge noise sigma
+    normalize_gauge: bool = True,
 ) -> torch.Tensor:
     """Robust alternating least squares on scaled-direction residuals
     (minimize sum_e w_e ||(t_b - t_a) - s_e u_e||^2 with s_e >= 0.05,
     alternating the closed-form scale with a CG solve of the weighted graph
     Laplacian; Huber IRLS after the first third; mean edge scale normalized
-    to 1), then a damped Gauss-Newton polish on the chordal direction cost."""
+    to 1), then a damped Gauss-Newton polish on the chordal direction cost.
+
+    Metric edges (``is_metric`` 1: rig calibration or lidar priors, the
+    reference's BinaryMeasurementPoint3 priors in rig_1dsfm.py:25) pin the
+    full displacement t_b - t_a = u_e: their scale stays 1 and they fix the
+    scale gauge, so the caller passes ``normalize_gauge=False`` with them.
+    Edge weights carry (NOISE_SIGMA / sigma_e)^2."""
     n = num_nodes
     delta = 0.05
     eye3 = torch.eye(3, dtype=u_meas.dtype, device=u_meas.device)
+    if is_metric is None:
+        is_metric = torch.zeros_like(u_meas[:, 0])
+    if sigma_e is None:
+        sigma_e = torch.full_like(u_meas[:, 0], NOISE_SIGMA)
+    metric = is_metric > 0
+    w_sigma = (NOISE_SIGMA / sigma_e) ** 2
     t = t0
     for it in range(iters):
         d_vec = t[edges_b] - t[edges_a]
         s = torch.clamp(torch.sum(d_vec * u_meas, dim=-1), min=delta)
-        s_mean = torch.sum(s * w_edge) / torch.clamp(torch.sum(w_edge), min=1e-9)
-        s = s / torch.clamp(s_mean, min=1e-9)
-        t = t / torch.clamp(s_mean, min=1e-9)
+        s = torch.where(metric, torch.ones_like(s), s)
+        if normalize_gauge:  # mean live-edge scale -> 1
+            s_mean = torch.sum(s * w_edge) / torch.clamp(torch.sum(w_edge), min=1e-9)
+            s = s / torch.clamp(s_mean, min=1e-9)
+            t = t / torch.clamp(s_mean, min=1e-9)
         target = s[:, None] * u_meas
         e = torch.linalg.norm((t[edges_b] - t[edges_a]) - target, dim=-1)
         w_rob = torch.clamp(0.25 / torch.clamp(e, min=1e-9), max=1.0)
         if it < iters // 3:  # first sweeps: plain least squares
             w_rob = torch.ones_like(w_rob)
-        w = w_rob * w_edge
+        w = w_rob * w_edge * w_sigma
 
         def L_mv(x, w=w):
             y = w[:, None] * (x[edges_b] - x[edges_a])
@@ -221,10 +235,12 @@ def _recover_translations_gn(
         d_vec = t[edges_b] - t[edges_a]
         dn = torch.clamp(torch.linalg.norm(d_vec, dim=-1, keepdim=True), min=1e-9)
         d = d_vec / dn
-        r = (d - u_meas) / NOISE_SIGMA
+        sig = sigma_e[:, None]
+        r = torch.where(metric[:, None], (d_vec - u_meas) / sig, (d - u_meas) / sig)
         e = torch.linalg.norm(r, dim=-1)
         w_rob = torch.clamp(HUBER_K / torch.clamp(e, min=1e-9), max=1.0) * w_edge
-        P = (eye3 - d[:, :, None] * d[:, None, :]) / (dn[..., None] * NOISE_SIGMA)
+        P = torch.where(metric[:, None, None], eye3 / sig[..., None],
+                        (eye3 - d[:, :, None] * d[:, None, :]) / (dn[..., None] * sig[..., None]))
         JtJ_e = torch.einsum("eki,ekj->eij", P, P) * w_rob[:, None, None]
         Jtr_e = torch.einsum("eki,ek->ei", P, r) * w_rob[:, None]
         Hd = _segment_sum(JtJ_e, edges_a, n) + _segment_sum(JtJ_e, edges_b, n)
@@ -278,11 +294,17 @@ def run_translation_averaging(
     track_cam_idx: np.ndarray | None = None,  # (T, L) optional track cams
     track_rays: np.ndarray | None = None,  # (T, L, 3) unit rays in CAMERA frame
     track_mask: np.ndarray | None = None,  # (T, L)
+    prior_edges: np.ndarray | None = None,  # (Q, 2) (i1, i2) metric prior edges
+    prior_disp: np.ndarray | None = None,  # (Q, 3) world-frame t_i1 - t_i2
+    prior_sigma: np.ndarray | None = None,  # (Q,) noise sigma per prior
     device: str | torch.device = "cuda",
 ) -> TranslationResult:
     """Full 1dSFM: lift to world, MFAS inliers, robust recovery. Selected
     camera->landmark directions from tracks join the recovery with the
-    landmarks as extra unknowns (reference averaging_1dsfm.py)."""
+    landmarks as extra unknowns (reference averaging_1dsfm.py). Metric
+    priors (world-frame relative positions, the reference's
+    BinaryMeasurementsPoint3 from rig calibration or lidar odometry) join
+    the recovery with full-displacement residuals and fix the scale gauge."""
     dev = resolve_device(device)
     n = num_images
     wRi = np.asarray(wRi)
@@ -302,6 +324,13 @@ def run_translation_averaging(
         d = w_dirs[k].astype(np.float32)
         adj.setdefault(a, []).append((b, d))
         adj.setdefault(b, []).append((a, -d))
+    has_priors = prior_edges is not None and len(prior_edges) > 0
+    if has_priors:
+        for q in range(len(prior_edges)):
+            i1, i2 = int(prior_edges[q, 0]), int(prior_edges[q, 1])
+            d = prior_disp[q].astype(np.float32)  # t_i1 - t_i2
+            adj.setdefault(i2, []).append((i1, d))
+            adj.setdefault(i1, []).append((i2, -d))
     visited = set()
     for root in adj:
         if root in visited:
@@ -344,13 +373,24 @@ def run_translation_averaging(
     def tensor(x, dtype=torch.float32):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
 
-    ea = tensor(np.concatenate([edges[:, 1], np.asarray(extra_a, np.int64)]), torch.int64)
-    eb = tensor(np.concatenate([edges[:, 0], np.asarray(extra_b, np.int64)]), torch.int64)
-    u = tensor(np.concatenate([w_dirs.astype(np.float32)] + ([np.stack(extra_u)] if extra_u else [])))
-    ones = np.ones(len(extra_a), np.float32)
+    # Edge direction from i2 (a) to i1 (b); prior rows last.
+    n_pri = len(prior_edges) if has_priors else 0
+    ea = tensor(np.concatenate([edges[:, 1], np.asarray(extra_a, np.int64)]
+                               + ([prior_edges[:, 1]] if has_priors else [])), torch.int64)
+    eb = tensor(np.concatenate([edges[:, 0], np.asarray(extra_b, np.int64)]
+                               + ([prior_edges[:, 0]] if has_priors else [])), torch.int64)
+    u = tensor(np.concatenate([w_dirs.astype(np.float32)] + ([np.stack(extra_u)] if extra_u else [])
+                              + ([prior_disp.astype(np.float32)] if has_priors else [])))
+    is_metric = np.zeros(ea.shape[0], np.float32)
+    sigma = np.full(ea.shape[0], NOISE_SIGMA, np.float32)
+    if has_priors:
+        is_metric[-n_pri:] = 1.0
+        sigma[-n_pri:] = np.asarray(prior_sigma, np.float32)
+    metric_kw = dict(is_metric=tensor(is_metric), sigma_e=tensor(sigma), normalize_gauge=not has_priors)
+    ones = np.ones(len(extra_a) + n_pri, np.float32)
     with record_function("back_end/translation_averaging/recovery"):
         t = _recover_translations_gn(ea, eb, u, tensor(np.concatenate([inliers.astype(np.float32), ones])),
-                                     tensor(t0), num_nodes=n_total, iters=150)
+                                     tensor(t0), num_nodes=n_total, iters=150, **metric_kw)
 
     # Second rejection pass: edges off by > 15 degrees after recovery go.
     t_np = t.cpu().numpy()
@@ -363,12 +403,66 @@ def run_translation_averaging(
     valid[edges[inliers, 1]] = True
     with record_function("back_end/translation_averaging/recovery"):
         t = _recover_translations_gn(ea, eb, u, tensor(np.concatenate([inliers.astype(np.float32), ones])),
-                                     t, num_nodes=n_total, iters=20, gn_iters=15)
+                                     t, num_nodes=n_total, iters=20, gn_iters=15, **metric_kw)
     t = t.cpu().numpy()[:n]
     t = t - t[valid].mean(0, keepdims=True) if valid.any() else t
     return TranslationResult(wti=t, valid=valid, inlier_edges=inliers)
 
 
-def run_rig_translation_averaging(*args, **kwargs) -> TranslationResult:
-    """Rig variant of 1dSFM (reference rig_1dsfm.py:25)."""
-    raise NotImplementedError("rig translation averaging " + _NOT_PORTED.format("'BA extensions and rigs'"))
+# Hilti rig layout (reference rig_1dsfm.py:25 RigTranslationAveraging1DSFM).
+NUM_CAMERAS_IN_RIG = 5
+BODY_FRAME_CAMERA = 2
+VALID_HARD_CONSTRAINT_EDGES = ((0, 2), (1, 2), (2, 3), (2, 4))
+
+
+def run_rig_translation_averaging(
+    num_images: int,
+    edges: np.ndarray,
+    i2Ui1: np.ndarray,
+    wRi: np.ndarray,
+    relative_pose_priors: dict,
+    num_cams_in_rig: int = NUM_CAMERAS_IN_RIG,
+    body_cam: int = BODY_FRAME_CAMERA,
+    **kwargs,
+) -> TranslationResult:
+    """Rig variant of 1dSFM (reference rig_1dsfm.py:25): relative Pose3
+    priors become world-frame relative Point3 priors before recovery.
+
+      * HARD priors (rigid rig calibration) are kept only on the intra-rig
+        edges of VALID_HARD_CONSTRAINT_EDGES (camera index within the rig),
+        sigma 1e-3.
+      * SOFT priors (lidar odometry) are collapsed to one prior between the
+        BODY_FRAME_CAMERA nodes of the two rigs, sigma 1e-2.
+
+    ``relative_pose_priors``: {(i1, i2): PosePrior} holding i1Ti2 (wRi =
+    i1Ri2, wti = position of camera i2 in camera i1's frame)."""
+    from gtsfm_tpu_torch.common.pose_prior import PosePriorType
+
+    R = num_cams_in_rig
+    wRi_np = np.asarray(wRi)
+    pe, pd, ps = [], [], []
+    added = set()
+    for (i1, i2), p in relative_pose_priors.items():
+        # w(t_i2 - t_i1) = wRi1 @ i1ti2; a prior row (r0, r1) constrains
+        # t_r0 - t_r1, so rows are stored as (i2, i1).
+        w_disp = wRi_np[i1] @ np.asarray(p.wti)
+        if p.type == PosePriorType.HARD_CONSTRAINT:
+            c1, c2 = i1 % R, i2 % R
+            if (c1, c2) in VALID_HARD_CONSTRAINT_EDGES or (c2, c1) in VALID_HARD_CONSTRAINT_EDGES:
+                pe.append((i2, i1))
+                pd.append(w_disp)
+                ps.append(1e-3)
+                added.add((i1, i2))
+        else:
+            b1, b2 = (i1 // R) * R + body_cam, (i2 // R) * R + body_cam
+            if (b1, b2) in added:
+                continue
+            added.add((b1, b2))
+            pe.append((i2, i1))
+            pd.append(w_disp)
+            ps.append(1e-2)
+    if pe:
+        kwargs["prior_edges"] = np.asarray(pe, np.int64)
+        kwargs["prior_disp"] = np.stack(pd).astype(np.float32)
+        kwargs["prior_sigma"] = np.asarray(ps, np.float32)
+    return run_translation_averaging(num_images, edges, i2Ui1, wRi, **kwargs)

@@ -24,9 +24,15 @@ runner/gtsfm_runner_base.py:275-413). ``run(loader)`` goes through:
      export, the metrics JSON/HTML, the process graph, the diagnostic plots
      and the web viewer.
 
-Runs on one device, ``"cuda"`` unless the caller asks otherwise. Fisheye and
-rig loaders, pose priors, distributed BA and densification are later slices
-(ROADMAP queue 1) and raise NotImplementedError.
+Rig loaders (Hilti): fisheye keypoints are undistorted into a virtual
+pinhole after the features, the loader's relative-pose priors join the
+averaging graph as edges, translation averaging takes them as metric priors
+(rig 1dSFM), global BA takes them as between factors, and a final BA stage
+re-optimizes the cameras natively as Cal3Fisheye on the original keypoints.
+
+Runs on one device, ``"cuda"`` unless the caller asks otherwise.
+Distributed BA and densification are later slices (ROADMAP queue 1) and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -524,16 +530,52 @@ class SceneOptimizer:
             self._peak_since_stage = max(self._peak_since_stage, peak)
             torch.cuda.reset_peak_memory_stats(self.device)
 
-    def _check_ported(self, loader: LoaderBase, save_outputs: bool) -> None:
+    def _check_ported(self) -> None:
         cfg = self.config
-        if hasattr(loader, "get_fisheye_calibration"):
-            raise NotImplementedError("fisheye loaders " + _NOT_PORTED.format("'BA extensions and rigs'"))
-        if hasattr(loader, "get_relative_pose_priors") or hasattr(loader, "rig_from_image"):
-            raise NotImplementedError("relative-pose priors and rigs " + _NOT_PORTED.format("'BA extensions and rigs'"))
         if cfg.multi_view.distributed_ba == "on":
             raise NotImplementedError("distributed_ba='on' " + _NOT_PORTED.format("'multi-GPU'"))
         if cfg.densify.enabled:
             raise NotImplementedError("densify " + _NOT_PORTED.format("'densify'"))
+
+    def _undistort_fisheye(self, loader, feats, cals):
+        """Fisheye keypoints into a virtual pinhole camera per image, so the
+        pinhole pipeline runs unchanged (the reference keeps Cal3Fisheye
+        inside GTSAM; here the undistortion happens once). Returns the
+        undistorted features, their Cal3Bundler params and (original
+        keypoints (N, K, 2), Cal3Fisheye params (N, 9)) for the native
+        fisheye BA stage. Calibrations follow the rescaled resolution."""
+        scale = cals[0][0] / loader.get_camera_intrinsics_full_res(0)[0]
+        cal9 = np.stack([np.asarray(loader.get_fisheye_calibration(i), np.float32) for i in range(len(feats))])
+        cal9[:, [0, 1, 3, 4]] *= scale
+        orig_kp = np.stack([np.asarray(f.uv) for f in feats])
+        mask = np.stack([np.asarray(f.mask) for f in feats])
+        uv_pin, cal5 = cameras.fisheye_to_virtual_pinhole(torch.as_tensor(cal9, device=self.device)[:, None],
+                                                          torch.as_tensor(orig_kp, device=self.device))
+        uv_pin = (uv_pin * torch.as_tensor(mask, device=self.device)[..., None]).cpu().numpy()
+        feats = [f._replace(uv=uv_pin[i]) for i, f in enumerate(feats)]
+        logger.info("fisheye keypoints undistorted to a virtual pinhole "
+                    "(native fisheye BA refinement runs after global BA)")
+        return feats, cal5[:, 0].cpu().numpy(), (orig_kp, cal9)
+
+    def _fisheye_native_ba(self, final, trks, fisheye_orig, camera_mask, priors):
+        """Native Cal3Fisheye refinement on the original distorted
+        keypoints (the reference optimizes fisheye cameras inside BA,
+        bundle_adjustment.py:106): the surviving tracks' measurements rebuilt
+        with the raw keypoints, poses and points seeded from the pinhole
+        solution, then one BA stage at the last threshold (float64, as every
+        final stage). Returns the scene and the stage's statistics."""
+        mv = self.config.multi_view
+        orig_kp, cal9 = fisheye_orig
+        sc = scene_mod.make_scene(final.wRi.cpu().numpy(), final.wti.cpu().numpy(), cal9,
+                                  tracks_mod.tracks_to_measurements(trks, orig_kp), camera_mask=camera_mask,
+                                  pad_tracks_to=final.num_tracks_padded, device=self.device)
+        sc = sc.replace(points=final.points, track_mask=sc.track_mask * final.track_mask)
+        cfg = ba.BAConfig(max_iterations=mv.ba_max_iterations, optimize_calibration=mv.optimize_calibration,
+                          bucket_l=ba.auto_bucket_l(sc))
+        out, (stats,) = ba.run_ba_with_filtering(sc, (mv.ba_reproj_thresholds_px[-1],), cfg, priors=priors)
+        logger.info("native fisheye BA: cost %.1f -> %.1f (%d iters)", stats["initial_cost"], stats["final_cost"],
+                    stats["iterations"])
+        return out, dict(stats, stage="fisheye_native")
 
     def _save_reports(self, metrics, frontend_reports) -> None:
         out = os.path.join(self.config.output_root, "result_metrics")
@@ -616,7 +658,7 @@ class SceneOptimizer:
 
     def _run_impl(self, loader: LoaderBase, save_outputs: bool = True) -> ReconstructionResult:
         cfg = self.config
-        self._check_ported(loader, save_outputs)
+        self._check_ported()
         dev = self.device
         self.stage_seconds, self.stage_peak_bytes, self._peak_since_stage = {}, {}, 0
         if dev.type == "cuda":
@@ -639,6 +681,10 @@ class SceneOptimizer:
         else:
             feats, cals, sizes = self.compute_features(loader)
             precomputed = None
+        fisheye_orig = None
+        if hasattr(loader, "get_fisheye_calibration"):
+            feats, cals, fisheye_orig = self._undistort_fisheye(loader, feats, cals)
+        prior_map = loader.get_relative_pose_priors() if hasattr(loader, "get_relative_pose_priors") else None
         t_feat = time.time()
         g = MetricsGroup("correspondence_metrics")
         g.add("num_keypoints_per_image", np.asarray([float(f.mask.sum()) for f in feats]))
@@ -728,6 +774,10 @@ class SceneOptimizer:
             frontend_reports["VIEWGRAPH"] = {pr: rep for pr, rep in frontend_reports["POST_ISP"].items()
                                              if pr in kept_pairs}
             edges, i2Ri1, i2Ui1 = edges[keep], i2Ri1[keep], i2Ui1[keep]
+            if prior_map is not None:
+                # Rig and lidar priors join the averaging graph directly (they
+                # come from calibration and odometry, not from matches).
+                edges, i2Ri1, i2Ui1 = _with_prior_edges(prior_map, edges, i2Ri1, i2Ui1)
             if len(edges) == 0:
                 logger.warning("view graph empty after cycle filtering: emitting an empty result with metrics")
                 self._stage("back_end/viewgraph", t_s)
@@ -814,11 +864,16 @@ class SceneOptimizer:
         t_s = self._stage("back_end/tracks", t_s)
 
         with record_function("back_end/translation_averaging"):
-            logger.info("translation averaging: %d edges, %d tracks", len(edges), T_n)
-            res_t = ta.run_translation_averaging(
-                n, edges, i2Ui1, wRi_est, num_projections=cfg.multi_view.num_mfas_projections, seed=cfg.seed,
-                sampling_method=cfg.multi_view.mfas_sampling_method, track_cam_idx=tr_cam, track_rays=rays,
-                track_mask=tr_mask, device=dev)
+            ta_kwargs = dict(num_projections=cfg.multi_view.num_mfas_projections, seed=cfg.seed,
+                             sampling_method=cfg.multi_view.mfas_sampling_method, track_cam_idx=tr_cam,
+                             track_rays=rays, track_mask=tr_mask, device=dev)
+            if prior_map is not None and hasattr(loader, "rig_from_image"):
+                # Rig datasets: the priors become metric Point3 priors
+                # (reference RigTranslationAveraging1DSFM, rig_1dsfm.py:25).
+                res_t = ta.run_rig_translation_averaging(n, edges, i2Ui1, wRi_est, prior_map, **ta_kwargs)
+            else:
+                logger.info("translation averaging: %d edges, %d tracks", len(edges), T_n)
+                res_t = ta.run_translation_averaging(n, edges, i2Ui1, wRi_est, **ta_kwargs)
             wti_est = res_t.wti.astype(np.float32)
             g = MetricsGroup("translation_averaging_metrics")
             g.add("num_inlier_edges", int(res_t.inlier_edges.sum()))
@@ -858,9 +913,16 @@ class SceneOptimizer:
                 bucket_l = 64
             ba_cfg = ba.BAConfig(max_iterations=cfg.multi_view.ba_max_iterations,
                                  optimize_calibration=cfg.multi_view.optimize_calibration, bucket_l=bucket_l)
-            logger.info("global BA: %d cams, %d tracks, %d meas (bucket_l %d)",
-                        sc.num_cameras(), sc.num_tracks(), sc.num_measurements(), bucket_l)
-            final, ba_stats = ba.run_ba_with_filtering(sc, cfg.multi_view.ba_reproj_thresholds_px, ba_cfg)
+            ba_priors = _ba_priors(prior_map, dev) if prior_map else None
+            logger.info("global BA: %d cams, %d tracks, %d meas (bucket_l %d), %d relative-pose priors",
+                        sc.num_cameras(), sc.num_tracks(), sc.num_measurements(), bucket_l,
+                        0 if ba_priors is None else len(ba_priors.weight))
+            final, ba_stats = ba.run_ba_with_filtering(sc, cfg.multi_view.ba_reproj_thresholds_px, ba_cfg,
+                                                       priors=ba_priors)
+            if fisheye_orig is not None:
+                with record_function("back_end/ba/fisheye_native"):
+                    final, stats = self._fisheye_native_ba(final, trks, fisheye_orig, camera_cc_mask, ba_priors)
+                ba_stats.append(stats)
             t_ba = time.time()
             err, _ = final.reprojection_errors()
             live = final.meas_mask > 0
@@ -917,6 +979,46 @@ class SceneOptimizer:
                               metrics_dir=os.path.join(out, "result_metrics"))
         self._stage("export", t_s)
         return ReconstructionResult(scene=final, metrics=metrics, wRi_pre_ba=wRi_pre_ba, wti_pre_ba=wti_pre_ba)
+
+
+def _with_prior_edges(prior_map: dict, edges: np.ndarray, i2Ri1: np.ndarray, i2Ui1: np.ndarray):
+    """The view-graph edges with one edge (a, b) appended per prior that is
+    not already an edge: i2Ri1 = aRb^T and the unit direction of -aRb^T atb
+    (a prior of zero translation adds no edge)."""
+    existing = {tuple(e) for e in edges.tolist()}
+    add_e, add_R, add_U = [], [], []
+    for (a, b), p in prior_map.items():
+        if (a, b) in existing:
+            continue
+        bta = -p.wRi.T @ p.wti
+        nrm = np.linalg.norm(bta)
+        if nrm < 1e-9:
+            continue
+        add_e.append((a, b))
+        add_R.append(p.wRi.T)
+        add_U.append(bta / nrm)
+    if not add_e:
+        return edges, i2Ri1, i2Ui1
+    logger.info("added %d prior edges to the averaging graph", len(add_e))
+    return (np.concatenate([edges, np.asarray(add_e, np.int64)]),
+            np.concatenate([i2Ri1, np.asarray(add_R, np.float32)]),
+            np.concatenate([i2Ui1, np.asarray(add_U, np.float32)]))
+
+
+def _ba_priors(prior_map: dict, device: torch.device) -> ba.RelativePosePriors:
+    """Between factors from the loader's priors, each with the sqrt
+    information 1 / max(sqrt(trace(cov) / 6), 1e-3) (isotropic)."""
+    priors = list(prior_map.values())
+
+    def tensor(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+    return ba.RelativePosePriors(
+        edges_a=tensor([a for a, _ in prior_map], torch.int64), edges_b=tensor([b for _, b in prior_map], torch.int64),
+        aRb=tensor(np.stack([p.wRi for p in priors]).astype(np.float32)),
+        atb=tensor(np.stack([p.wti for p in priors]).astype(np.float32)),
+        weight=tensor(np.asarray([1.0 / max(np.sqrt(np.trace(p.covariance) / 6.0), 1e-3) for p in priors],
+                                 np.float32)))
 
 
 def _trim(res: ransac.TwoViewResult, n: int) -> ransac.TwoViewResult:

@@ -3,9 +3,9 @@
 Port of gtsfm_tpu/runner/__main__.py (the reference's per-dataset runner
 scripts + GtsfmRunnerBase, gtsfm/runner/gtsfm_runner_base.py:41-457): the
 same flags and defaults, presets resolved against gtsfm_tpu_torch/configs/.
-The reconstruction runs on one CUDA card. Loaders ``olsson`` and ``colmap``
-run; the other loaders and the multi-host flags raise NotImplementedError
-naming their ROADMAP item.
+The reconstruction runs on one CUDA card. Loaders ``olsson``, ``colmap``
+and ``hilti`` run; the other loaders and the multi-host flags raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,7 +18,6 @@ import sys
 _NOT_PORTED = "not ported to gtsfm_tpu_torch yet: ROADMAP queue 1, {}"
 # ROADMAP queue 1 item of each loader the port does not have yet.
 _LOADER_ITEMS = {
-    "hilti": "'BA extensions and rigs'",
     "mobilebrick": "'remaining host modules'",
     "astrovision": "'remaining host modules'",
     "onedsfm": "'remaining host modules'",
@@ -113,6 +112,10 @@ def main(argv=None, device: str = "cuda") -> int:
             max_frame_lookahead=args.max_frame_lookahead,
             max_resolution=args.max_resolution,
         )
+    elif args.loader == "hilti":
+        from gtsfm_tpu_torch.loader.hilti import HiltiLoader
+
+        loader = HiltiLoader(args.dataset_root, max_resolution=args.max_resolution)
     else:
         from gtsfm_tpu_torch.loader.colmap import ColmapLoader
 

@@ -5,7 +5,8 @@ writes (6 survey renders as JPG and data.mat with P = K [R | t]) on the CPU
 with the default configuration (SIFT at 4096 keypoints, mutual-NN, plots).
 The COLMAP model it writes is then read by both packages' ColmapLoader
 (equal names, poses, calibrations, sizes, images and pairs) and
-reconstructed again through ``--loader colmap``.
+reconstructed again through ``--loader colmap``. ``--loader hilti`` runs on
+a folder of synthetic fisheye rig renders in the Hilti layout.
 """
 
 import contextlib
@@ -16,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import write_olsson_folder
+from chip_smoke import write_hilti_folder, write_olsson_folder
 from gtsfm_tpu.loader.colmap import ColmapLoader as JaxColmapLoader
 from gtsfm_tpu.runner import __main__ as jax_runner
 from gtsfm_tpu_torch.loader.colmap import ColmapLoader
@@ -117,8 +118,23 @@ def test_main_reconstructs_a_colmap_model(olsson_run):
     _check_model(rc, done, out)
 
 
-@pytest.mark.parametrize("argv", [["--loader", "hilti"], ["--loader", "yfcc"], ["--multihost"],
-                                  ["--coordinator_address", "localhost:1234"]])
+def test_main_reconstructs_a_hilti_rig(tmp_path):
+    """--loader hilti on a 3-rig folder of fisheye renders (15 images at
+    720 x 540, read at 480 x 360, 1024 SIFT keypoints, the rig window
+    regime): every camera placed and the COLMAP cameras written as
+    OPENCV_FISHEYE at the rescaled resolution."""
+    data = write_hilti_folder(str(tmp_path / "hilti"), 3, render=True)
+    out = str(tmp_path / "results")
+    rc, done = _main(["--loader", "hilti", "--dataset_root", data, "--output_root", out, "--no_cache",
+                      "--max_resolution", "360", "--override", "retriever.regime=sequential_hilti",
+                      "--override", "frontend.max_keypoints=1024", "--override", "save_plots=false"])
+    assert rc == 0 and len(done) == 1 and done[0].startswith("DONE: 15 cameras,")
+    with open(os.path.join(out, "ba_output", "cameras.txt")) as fh:
+        lines = [line.split() for line in fh if not line.startswith("#")]
+    assert len(lines) == 15 and all(ln[1:4] == ["OPENCV_FISHEYE", "480", "360"] for ln in lines)
+
+
+@pytest.mark.parametrize("argv", [["--loader", "yfcc"], ["--multihost"], ["--coordinator_address", "localhost:1234"]])
 def test_unported_options_raise(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         runner.main(["--dataset_root", "unused"] + argv, device="cpu")

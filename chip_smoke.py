@@ -37,7 +37,14 @@ folder of 20 fisheye rig renders (runner_cli). The rig path: SceneOptimizer.run
 on a HiltiLoader over a synthetic 100-pose fisheye rig with known features
 (rig_known: relative-pose priors in averaging and BA, the native fisheye BA
 stage, metric scale) and its back end on 6 rig poses on the card and on the
-CPU (rig_cpu_check). Each
+CPU (rig_cpu_check). Densification: SceneOptimizer.run with the SIFT preset
+and densify on the survey's renders, cold and warm (densify_survey: the
+densify stage's seconds and peak memory, the dense and voxel metrics, the
+saved points' height error against the rendered terrain), the plane sweep
+and consistency check on 3 reference views on the card and on the CPU
+(densify_cpu_check), PatchmatchNet with seeded weights through run on 16
+renders (patchmatchnet: ms a view per module, one view card vs CPU) and
+the runner CLI with --override densify.enabled=true (runner_cli). Each
 phase logs its seconds. Any failure raises and the
 exit code is non-zero. The last two lines of standard output
 are a JSON line of per-kernel numbers and the result line
@@ -2313,13 +2320,247 @@ def loftr_phase(dev, survey):
     return dict(run_deep_cell=deep, survey=full, cpu_check=check)
 
 
+# Densification on the survey (slice 8).
+SURVEY_ALTITUDE = 10.0  # SyntheticAerialLoader's default camera height over the terrain's mean
+# Bar on the median height error of the survey's dense points, as a share of
+# the altitude: about 4x the CPU rehearsal's median, 0.0013 on 24 of the
+# survey's images (PERF.md section 6).
+DENSIFY_HEIGHT_MEDIAN = 0.005
+DENSIFY_DEPTH_REL = 1e-3  # plane-sweep depth, card vs CPU, relative
+DENSIFY_DEPTH_SHARE = 0.99  # share of pixels within DENSIFY_DEPTH_REL
+
+
+def densify_config(output_root: str, engine: str = "plane_sweep"):
+    """The SIFT preset as sift_config runs it, with densify on at
+    DensifyConfig's defaults (64 planes, 4 sources, 400 px); the
+    PatchmatchNet engine with seeded weights (no checkpoint in the
+    repository)."""
+    cfg = sift_config(output_root)
+    cfg.densify.enabled = True
+    cfg.densify.engine = engine
+    cfg.densify.allow_random_weights = engine == "patchmatchnet"
+    return cfg
+
+
+def mvs_inputs(result, loader, max_resolution: int):
+    """The scene and images the densify stage of a run worked on (the
+    ortho-aligned export scene, as the pipeline derives them)."""
+    from gtsfm_tpu_torch.geometry.ellipsoid import align_scene_to_ortho_axes
+    from gtsfm_tpu_torch.pipeline import scene_optimizer
+
+    return scene_optimizer.mvs_inputs(loader, align_scene_to_ortho_axes(result.scene)[0], max_resolution)
+
+
+def dense_height_errors(result, loader, ply: str) -> dict:
+    """The saved dense points against the rendered terrain: the Sim(3) that
+    takes the export cameras' centres onto the loader's moves the points
+    into the survey's frame, where each point's height error is |z -
+    terrain(x, y)|, as a share of the altitude."""
+    from gtsfm_tpu_torch.geometry.alignment import umeyama_sim3
+    from gtsfm_tpu_torch.geometry.ellipsoid import align_scene_to_ortho_axes
+    from gtsfm_tpu_torch.io.colmap_io import read_ply
+
+    export, _ = align_scene_to_ortho_axes(result.scene)
+    live = export.camera_mask.cpu().numpy() > 0
+    gt = np.stack([loader.get_camera_pose(i)[1] for i in range(len(loader))])[live]
+    s, R, t = umeyama_sim3(export.wti.cpu().numpy()[live], gt)
+    pts, _ = read_ply(ply)
+    if pts.shape[0] == 0 or not np.all(np.isfinite(pts)):
+        raise AssertionError(f"{ply}: {pts.shape[0]} points, finite: {bool(np.all(np.isfinite(pts)))}")
+    p = (s * torch.as_tensor(pts) @ R.T + t).numpy().astype(np.float64)
+    err = np.abs(p[:, 2] - loader._height(p[:, 0], p[:, 1])) / SURVEY_ALTITUDE
+    return dict(points=int(pts.shape[0]), sim3_scale=float(s), median=float(np.median(err)),
+                p90=float(np.quantile(err, 0.9)))
+
+
+def densify_survey(dev, loader):
+    """SceneOptimizer.run with the SIFT preset and densify on (plane sweep at
+    DensifyConfig's defaults) on the survey's renders, cold and warm: the
+    densify stage's seconds and peak GB beside the other stages, the densify
+    and voxel metrics, and the saved cloud against the rendered terrain
+    (dense_height_errors). Fails on no points, non-finite points or a
+    median height error over DENSIFY_HEIGHT_MEDIAN of the altitude."""
+    from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
+
+    out_root = os.path.join(ROOT, "build", "chip_smoke_densify")
+    opt = SceneOptimizer(densify_config(out_root), device=dev)
+    runs, result = {}, None
+    for name in ("cold", "warm"):
+        shutil.rmtree(out_root, ignore_errors=True)
+        t0 = time.perf_counter()
+        result = opt.run(loader, save_outputs=True)
+        torch.cuda.synchronize()
+        runs[name] = dict(seconds=time.perf_counter() - t0, stage_seconds=dict(opt.stage_seconds),
+                          stage_peak_gb={k: v / 1e9 for k, v in opt.stage_peak_bytes.items()})
+        log(f"densify_survey {name}: {runs[name]['seconds']:.2f} s; stage seconds "
+            f"{json.dumps({k: round(v, 4) for k, v in opt.stage_seconds.items()})}; peak GB "
+            f"{json.dumps({k: round(v, 3) for k, v in runs[name]['stage_peak_gb'].items()})}")
+    groups = metric_groups(result)
+    dense = {k: float(v) for k, v in groups["densify_metrics"].items()}
+    voxel = {k: float(v) for k, v in groups.get("voxel_downsampling_metrics", {}).items()}
+    height = dense_height_errors(result, loader, os.path.join(out_root, "dense_point_cloud.ply"))
+    out = dict(images=len(loader), cameras=int(result.scene.num_cameras()), densify_metrics=dense,
+               voxel_downsampling_metrics=voxel, height_error_share_of_altitude=height, runs=runs)
+    log(f"densify_survey: {json.dumps({k: v for k, v in out.items() if k != 'runs'}, default=float)} "
+        f"(bar: median <= {DENSIFY_HEIGHT_MEDIAN})")
+    if dense["num_dense_points"] == 0 or not height["median"] <= DENSIFY_HEIGHT_MEDIAN:
+        raise AssertionError(f"densify_survey: {dense}, height errors {height}")
+    out["_mvs"] = mvs_inputs(result, loader, opt.config.densify.max_resolution)
+    return out
+
+
+def densify_cpu_check(dev, mvs, refs=(5, 60, 100)):
+    """plane_sweep_depth for 3 survey reference views and their sources, and
+    geometric_consistency for the references, on the card and on the CPU
+    from the same inputs (densify_survey's MVS scene and images): the share
+    of reference pixels whose depths agree to DENSIFY_DEPTH_REL (>=
+    DENSIFY_DEPTH_SHARE), the largest confidence difference there, and each
+    reference's fused point count (pixels kept by the consistency and
+    confidence gates) on both."""
+    from gtsfm_tpu_torch.common.image import to_grayscale
+    from gtsfm_tpu_torch.densify import plane_sweep as ps
+    from gtsfm_tpu_torch.pipeline.config import DensifyConfig
+
+    scene, images = mvs
+    cfg = DensifyConfig()
+    setup = ps.view_setup(scene, cfg.num_src_views)
+    refs = [r for r in refs if r in setup.active]
+    views = sorted(set(refs) | {int(s) for r in refs for s in setup.src_table[r] if s >= 0} & set(setup.active))
+    gray = np.stack([to_grayscale(im) for im in images])
+    maps, seconds = {}, {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        g = torch.as_tensor(gray, device=d)
+        K = torch.as_tensor(setup.K_all, device=d)
+        depth, conf = {}, {}
+        for i in views:
+            s, sRr, str_, d_min, d_max = setup.view_inputs(scene, i, cfg.num_src_views, d)
+            depth[i], conf[i] = ps.plane_sweep_depth(g[i], g[s], K[i], K[s], sRr, str_, d_min, d_max,
+                                                     num_depths=cfg.num_depths)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        maps[name] = (depth, conf)
+    agree, conf_diff, counts = [], 0.0, []
+    for r in refs:
+        dc, dp = maps["card"][0][r].cpu().numpy(), maps["cpu"][0][r].numpy()
+        agree.append(float(np.mean(np.abs(dc - dp) <= DENSIFY_DEPTH_REL * np.abs(dp))))
+        conf_diff = max(conf_diff, float(np.abs(maps["card"][1][r].cpu().numpy() - maps["cpu"][1][r].numpy()).max()))
+        srcs = [int(s) for s in setup.src_table[r] if s >= 0]
+        kept = {}
+        for name in ("card", "cpu"):
+            depth, conf = maps[name]
+            d = depth[r].device
+            t = lambda a: torch.as_tensor(a, device=d)  # noqa: E731
+            count = ps.geometric_consistency(depth[r], t(setup.K_all[r]), t(setup.wR[r]), t(setup.wt[r]),
+                                             torch.stack([depth[s] for s in srcs]), t(setup.K_all[srcs]),
+                                             t(setup.wR[srcs]), t(setup.wt[srcs]))
+            kept[name] = int(((count >= ps.MIN_CONSISTENT_VIEWS) & (conf[r] >= ps.MIN_CONFIDENCE)).sum())
+        counts.append((kept["card"], kept["cpu"]))
+    out = dict(refs=refs, views_swept=len(views), depth_agreement=agree, conf_max_abs_diff=conf_diff,
+               fused_points_card_cpu=counts, seconds=seconds)
+    log(f"densify_cpu_check: {json.dumps(out)} (limit: >= {DENSIFY_DEPTH_SHARE:.0%} of pixels within "
+        f"{DENSIFY_DEPTH_REL} relative)")
+    if min(agree) < DENSIFY_DEPTH_SHARE or min(min(c) for c in counts) == 0:
+        raise AssertionError("plane sweep on the card disagrees with the CPU")
+    return out
+
+
+PMN_DEPTH_REL = 1e-3  # PatchmatchNet depth, card vs CPU, relative
+
+
+def patchmatchnet_phase(dev, num_images: int = 16, rows: int = 2):
+    """densify.engine="patchmatchnet" (seeded weights) through run's densify
+    stage on a 16-image survey at full width (DensifyConfig's 400 px, S =
+    4): ms a view by CUDA events around FeatureNet, each PatchMatch stage
+    and Refinement (forward hooks), the stage's peak GB; then the model on
+    one view on the card and on the CPU with the same weights and the same
+    stage-3 draw: the share of pixels whose depths agree to PMN_DEPTH_REL
+    and the largest confidence difference."""
+    import copy
+
+    from gtsfm_tpu_torch.densify import patchmatchnet as pmn
+    from gtsfm_tpu_torch.densify import plane_sweep as ps
+    from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
+
+    loader = survey_loader(num_images, rows)
+    out_root = os.path.join(ROOT, "build", "chip_smoke_patchmatchnet")
+    shutil.rmtree(out_root, ignore_errors=True)
+    opt = SceneOptimizer(densify_config(out_root, "patchmatchnet"), device=dev)
+    model = opt._models["patchmatchnet"] = pmn.build_model(None, True, dev)
+    parts = {"feature": model.feature, "patchmatch_3": model.patchmatch_3, "patchmatch_2": model.patchmatch_2,
+             "patchmatch_1": model.patchmatch_1, "refinement": model.refinement}
+    events = defaultdict(list)
+    hooks = []
+    for name, mod in parts.items():
+        def pre(_m, _a, name=name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events[name].append([e])
+
+        def post(_m, _a, _o, name=name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events[name][-1].append(e)
+
+        hooks += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
+    t0 = time.perf_counter()
+    try:
+        result = opt.run(loader, save_outputs=True)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    seconds = time.perf_counter() - t0
+    views = len(events["refinement"])
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) / max(views, 1) for k, v in events.items()}
+    groups = metric_groups(result)
+    ply = os.path.join(out_root, "dense_point_cloud.ply")
+    out = dict(images=num_images, views=views, run_seconds=seconds,
+               densify_seconds=opt.stage_seconds["densify"],
+               densify_peak_gb=opt.stage_peak_bytes["densify"] / 1e9, ms_per_view=ms,
+               ms_per_view_total=sum(ms.values()), densify_metrics={k: float(v) for k, v in
+                                                                    groups["densify_metrics"].items()},
+               ply=os.path.isfile(ply))
+    log(f"patchmatchnet run: {json.dumps(out)}")
+    if views == 0 or not out["ply"]:
+        raise AssertionError(f"patchmatchnet densify stage ran {views} views, ply written: {out['ply']}")
+
+    scene, images = mvs_inputs(result, loader, opt.config.densify.max_resolution)
+    setup = ps.view_setup(scene, 4)
+    i = setup.active[len(setup.active) // 2]
+    rgb = np.stack(pmn.model_images(images))
+    h, w = rgb.shape[1:3]
+    uniform = torch.rand((pmn.NUM_RANDOM_INIT, h // 8, w // 8), generator=torch.Generator().manual_seed(0))
+    cpu_model = copy.deepcopy(model).cpu()
+    res = {}
+    for name, m, d in (("card", model, dev), ("cpu", cpu_model, torch.device("cpu"))):
+        x = torch.as_tensor(rgb, device=d).permute(0, 3, 1, 2)
+        K = torch.as_tensor(setup.K_all, device=d)
+        s, sRr, str_, d_min, d_max = setup.view_inputs(scene, i, 4, d)
+        with torch.no_grad():
+            depth, conf = m(x[i], x[s], K[i], K[s], sRr, str_, d_min, d_max, init_uniform=uniform.to(d))
+        res[name] = (depth.cpu().numpy(), conf.cpu().numpy())
+    (dc, cc), (dp, cp) = res["card"], res["cpu"]
+    check = dict(view=int(i), shape=[h, w], depth_agreement=float(np.mean(np.abs(dc - dp) <= PMN_DEPTH_REL * np.abs(dp))),
+                 depth_max_rel_diff=float(np.max(np.abs(dc - dp) / np.abs(dp))),
+                 conf_max_abs_diff=float(np.abs(cc - cp).max()))
+    log(f"patchmatchnet card vs CPU (one view, same weights and draw): {json.dumps(check)} (limit: >= "
+        f"{DENSIFY_DEPTH_SHARE:.0%} of pixels within {PMN_DEPTH_REL} relative)")
+    if not np.all(np.isfinite(dc)) or check["depth_agreement"] < DENSIFY_DEPTH_SHARE:
+        raise AssertionError("PatchmatchNet on the card disagrees with the CPU")
+    out["cpu_check"] = check
+    return out
+
+
 def runner_cli(num_images: int = 12):
     """python -m gtsfm_tpu_torch.runner's main() with the default
     configuration (plots off, as in sift_config) on an Olsson folder (JPG +
     data.mat) of a two-row survey, written under build/, then with
     ``--loader colmap`` on the model it wrote and the same images, then with
-    ``--override frontend.feature_type=orb`` on the Olsson folder: the DONE
-    lines and the model files. Last, ``--loader hilti`` (the rig window
+    ``--override frontend.feature_type=orb`` and with ``--override
+    densify.enabled=true`` on the Olsson folder: the DONE lines, the model
+    files and the parsed dense_point_cloud.ply. Last, ``--loader hilti`` (the rig window
     regime) on a Hilti-layout folder of 4 rig poses' fisheye renders: the
     DONE line with every camera and OPENCV_FISHEYE cameras."""
     from gtsfm_tpu_torch.runner import __main__ as runner
@@ -2331,7 +2572,8 @@ def runner_cli(num_images: int = 12):
     outs = {}
     for name, extra in (("olsson", []), ("colmap", ["--loader", "colmap", "--images_dir",
                                                      os.path.join(data, "images")]),
-                        ("orb", ["--override", "frontend.feature_type=orb"])):
+                        ("orb", ["--override", "frontend.feature_type=orb"]),
+                        ("densify", ["--override", "densify.enabled=true"])):
         out = os.path.join(root, f"results_{name}")
         dataset = os.path.join(root, "results_olsson", "ba_output") if name == "colmap" else data
         argv = ["--dataset_root", dataset, "--output_root", out, "--no_cache", "--override", "save_plots=false"]
@@ -2347,6 +2589,14 @@ def runner_cli(num_images: int = 12):
         if rc != 0 or len(done) != 1 or not done[0].startswith(f"DONE: {num_images} cameras") or missing:
             raise AssertionError(f"runner CLI {name}: rc {rc}, {done}, missing {missing}")
         outs[name] = dict(seconds=seconds, done=done[0], files=len(files))
+        if name == "densify":
+            from gtsfm_tpu_torch.io.colmap_io import read_ply
+
+            pts, _ = read_ply(os.path.join(out, "dense_point_cloud.ply"))
+            log(f"runner_cli densify: dense_point_cloud.ply parses, {pts.shape[0]} points")
+            if pts.shape[0] == 0 or not np.all(np.isfinite(pts)):
+                raise AssertionError(f"runner CLI densify: {pts.shape[0]} points in dense_point_cloud.ply")
+            outs[name]["dense_points"] = int(pts.shape[0])
     n_rigs = 4
     t0 = time.perf_counter()
     hilti = write_hilti_folder(os.path.join(root, "hilti"), n_rigs, render=True)
@@ -2428,6 +2678,9 @@ def main() -> int:
     front_ends = {ft: phase(f"run_{ft}", run_front_end, dev, survey, ft) for ft in ("kaze", "orb", "brisk")}
     deep_dets = phase("deep_detectors", deep_detectors, dev)
     loftr_out = phase("loftr", loftr_phase, dev, survey)
+    dense = phase("densify_survey", densify_survey, dev, survey)
+    dense_check = phase("densify_cpu_check", densify_cpu_check, dev, dense.pop("_mvs"))
+    pmn_out = phase("patchmatchnet", patchmatchnet_phase, dev)
     cli = phase("runner_cli", runner_cli)
     # the kernel at the new paths' shapes: SuperGlue's 512-pair chunk, and
     # two Kq != Kkv shapes the decisive adaptive LightGlue run launched
@@ -2472,7 +2725,8 @@ def main() -> int:
                     "verifiers_check": zoo, "superglue_known": sg_known, "run_unified": unified,
                     "retrieval": retrieved, "classical_cpu_check": classical_check,
                     **{f"run_{ft}": v for ft, v in front_ends.items()}, "deep_detectors": deep_dets,
-                    "loftr": loftr_out, "phase_seconds": phase_s}, default=float))
+                    "loftr": loftr_out, "densify_survey": dense, "densify_cpu_check": dense_check,
+                    "patchmatchnet": pmn_out, "phase_seconds": phase_s}, default=float))
     log(f"{smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

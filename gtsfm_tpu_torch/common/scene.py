@@ -192,3 +192,29 @@ def make_scene(
 def _next_bucket(n: int, granularity: int = 256) -> int:
     """Round up to a bucket size (the JAX package's padding, so shapes match)."""
     return max(granularity, ((n + granularity - 1) // granularity) * granularity)
+
+
+def tracks_to_padded(scene: SceneData, max_track_len: int):
+    """The per-track padded view (host numpy), as the JAX package builds it.
+
+    Returns (cam_idx (T, L) int32, uv (T, L, 2) float32, mask (T, L)
+    float32): slot f of track j holds the track's f-th live measurement in
+    measurement order; measurements past ``max_track_len`` are dropped.
+    Vectorized by a stable sort of the live measurements by track.
+    """
+    T, L = scene.num_tracks_padded, max_track_len
+    cam_idx = np.zeros((T, L), np.int32)
+    uv = np.zeros((T, L, 2), np.float32)
+    mask = np.zeros((T, L), np.float32)
+    live = np.nonzero(scene.meas_mask.cpu().numpy() > 0)[0]
+    track = scene.meas_track.cpu().numpy()[live]
+    order = np.argsort(track, kind="stable")
+    live, track = live[order], track[order]
+    starts = np.searchsorted(track, track, side="left")
+    slot = np.arange(track.size) - starts
+    keep = slot < L
+    live, track, slot = live[keep], track[keep], slot[keep]
+    cam_idx[track, slot] = scene.meas_cam.cpu().numpy()[live]
+    uv[track, slot] = scene.meas_uv.cpu().numpy()[live]
+    mask[track, slot] = 1.0
+    return cam_idx, uv, mask

@@ -232,3 +232,46 @@ def read_points3d_txt(path: str):
         np.asarray(cols, np.uint8).reshape(-1, 3),
         tracks,
     )
+
+
+def write_ply(path: str, points: np.ndarray, colors: np.ndarray | None = None):
+    """ASCII PLY point-cloud export (reference utils/io.py
+    save_point_cloud_as_ply): x y z as float, red green blue as uchar."""
+    points = np.asarray(points, np.float32).reshape(-1, 3)
+    n = points.shape[0]
+    if colors is None:
+        colors = np.full((n, 3), 128, np.uint8)
+    with open(path, "w") as f:
+        f.write("ply\nformat ascii 1.0\n")
+        f.write(f"element vertex {n}\n")
+        f.write("property float x\nproperty float y\nproperty float z\n")
+        f.write("property uchar red\nproperty uchar green\nproperty uchar blue\n")
+        f.write("end_header\n")
+        # %.9g round-trips float32. One % over a block of rows formats about
+        # twice as fast as a row at a time (np.savetxt).
+        line = "%.9g %.9g %.9g %d %d %d\n"
+        colors = np.asarray(colors).reshape(-1, 3)
+        for i in range(0, n, 65536):
+            rows = np.concatenate([points[i:i + 65536], colors[i:i + 65536]], 1, dtype=np.float64)
+            f.write((line * rows.shape[0]) % tuple(rows.ravel().tolist()))
+
+
+def read_ply(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """(points (N, 3) float32, colors (N, 3) uint8) of an ASCII PLY point
+    cloud as write_ply writes it."""
+    with open(path) as f:
+        if f.readline().strip() != "ply" or f.readline().strip() != "format ascii 1.0":
+            raise ValueError(f"{path}: not an ASCII PLY file")
+        n = None
+        for line in f:
+            line = line.strip()
+            if line.startswith("element vertex"):
+                n = int(line.split()[2])
+            if line == "end_header":
+                break
+        if n is None:
+            raise ValueError(f"{path}: no vertex element")
+        rows = np.loadtxt(f, dtype=np.float64, ndmin=2, max_rows=n).reshape(-1, 6) if n else np.zeros((0, 6))
+    if rows.shape[0] != n:
+        raise ValueError(f"{path}: {rows.shape[0]} of {n} vertices")
+    return rows[:, :3].astype(np.float32), rows[:, 3:].astype(np.uint8)

@@ -30,9 +30,13 @@ averaging graph as edges, translation averaging takes them as metric priors
 (rig 1dSFM), global BA takes them as between factors, and a final BA stage
 re-optimizes the cameras natively as Cal3Fisheye on the original keypoints.
 
+With densify.enabled, the exported scene is densified (plane sweep or
+PatchmatchNet, consistency fusion, voxel downsampling) into
+dense_point_cloud.ply.
+
 Runs on one device, ``"cuda"`` unless the caller asks otherwise.
-Distributed BA and densification are later slices (ROADMAP queue 1) and
-raise NotImplementedError.
+Distributed BA is a later slice (ROADMAP queue 1) and raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -534,8 +538,47 @@ class SceneOptimizer:
         cfg = self.config
         if cfg.multi_view.distributed_ba == "on":
             raise NotImplementedError("distributed_ba='on' " + _NOT_PORTED.format("'multi-GPU'"))
-        if cfg.densify.enabled:
-            raise NotImplementedError("densify " + _NOT_PORTED.format("'densify'"))
+
+    def _densify(self, loader, export_scene, save_outputs: bool) -> list[MetricsGroup]:
+        """MVS on the exported (ortho-aligned) scene: the images rescaled to
+        densify.max_resolution, the intrinsics scaled with them, plane sweep
+        or PatchmatchNet, consistency fusion, then voxel downsampling of the
+        fused cloud (reference densify/mvs_base.py:80-91), saved as
+        dense_point_cloud.ply. Returns the densify and voxel metrics groups."""
+        from gtsfm_tpu_torch.densify import mvs_utils, plane_sweep
+
+        cfg = self.config
+        with record_function("densify/images"):
+            mvs_scene, small_imgs = mvs_inputs(loader, export_scene, cfg.densify.max_resolution)
+        with record_function("densify/depth_and_fusion"):
+            if cfg.densify.engine == "patchmatchnet":
+                from gtsfm_tpu_torch.densify import patchmatchnet as pmn
+
+                if "patchmatchnet" not in self._models:
+                    self._models["patchmatchnet"] = pmn.build_model(
+                        cfg.densify.patchmatchnet_checkpoint, cfg.densify.allow_random_weights, self.device)
+                dense = pmn.densify_patchmatchnet(small_imgs, mvs_scene, num_src_views=cfg.densify.num_src_views,
+                                                  model=self._models["patchmatchnet"])
+            else:
+                dense = plane_sweep.densify(small_imgs, mvs_scene, num_depths=cfg.densify.num_depths,
+                                            num_src_views=cfg.densify.num_src_views)
+        groups = [MetricsGroup("densify_metrics")]
+        for k, v in dense.metrics.items():
+            groups[0].add(k, v)
+        with record_function("densify/downsample"):
+            dense_pts, dense_rgb = dense.points, dense.rgb
+            if dense_pts.shape[0] >= 2:
+                voxel_size = mvs_utils.estimate_minimum_voxel_size(dense_pts)
+                sampled_pts, sampled_rgb = mvs_utils.downsample_point_cloud(dense_pts, dense_rgb, voxel_size)
+                groups.append(mvs_utils.get_voxel_downsampling_metrics(voxel_size, dense_pts, sampled_pts))
+            else:
+                sampled_pts, sampled_rgb = dense_pts, dense_rgb
+        if save_outputs:
+            os.makedirs(cfg.output_root, exist_ok=True)
+            colmap_io.write_ply(os.path.join(cfg.output_root, "dense_point_cloud.ply"), sampled_pts, sampled_rgb)
+        logger.info("densify: %d dense points, %d after voxel downsampling", dense_pts.shape[0],
+                    sampled_pts.shape[0])
+        return groups
 
     def _undistort_fisheye(self, loader, feats, cals):
         """Fisheye keypoints into a virtual pinhole camera per image, so the
@@ -960,6 +1003,9 @@ class SceneOptimizer:
         # scene_optimizer.py:218, utils/ellipsoid.py); rigid, so the Sim(3)
         # pose comparisons above are unaffected.
         export_scene, _ = align_scene_to_ortho_axes(final)
+        if cfg.densify.enabled:
+            metrics.extend(self._densify(loader, export_scene, save_outputs))
+            t_s = self._stage("densify", t_s)
         if save_outputs:
             from gtsfm_tpu_torch.ui.process_graph import save_process_graph
             from gtsfm_tpu_torch.visualization.web_viewer import export_web_viewer
@@ -979,6 +1025,27 @@ class SceneOptimizer:
                               metrics_dir=os.path.join(out, "result_metrics"))
         self._stage("export", t_s)
         return ReconstructionResult(scene=final, metrics=metrics, wRi_pre_ba=wRi_pre_ba, wti_pre_ba=wti_pre_ba)
+
+
+def mvs_inputs(loader: LoaderBase, export_scene: scene_mod.SceneData, max_resolution: int):
+    """What the densify stage works on: the loader's images rescaled to
+    ``max_resolution`` (short side) and the export scene with its
+    intrinsics scaled with them (f, u0, v0); a fisheye scene (9 parameters)
+    gets a virtual pinhole K. Returns (scene, images)."""
+    from gtsfm_tpu_torch.common.image import rescale_image
+
+    images = [rescale_image(loader.get_image(i)[0], max_resolution)[0].value_array for i in range(len(loader))]
+    scale = min(images[0].shape[:2]) / min(loader.get_image(0)[0].value_array.shape[:2])
+    cal = export_scene.cal.cpu().numpy().copy()
+    if cal.shape[-1] == 9:
+        # The MVS engines assume undistorted images; the distortion at MVS
+        # resolution is secondary.
+        logger.warning("densify on fisheye scene uses virtual-pinhole K")
+        f_avg = 0.5 * (cal[:, 0] + cal[:, 1])
+        zero = np.zeros_like(f_avg)
+        cal = np.stack([f_avg, zero, zero, cal[:, 3], cal[:, 4]], -1)
+    cal[:, [0, 3, 4]] *= scale
+    return export_scene.replace(cal=torch.as_tensor(cal, dtype=torch.float32, device=export_scene.device)), images
 
 
 def _with_prior_edges(prior_map: dict, edges: np.ndarray, i2Ri1: np.ndarray, i2Ui1: np.ndarray):

@@ -139,8 +139,8 @@ def test_cpu_run_launches_no_kernel(checkpoints, tmp_path):
 
 def test_unported_options_raise(checkpoints, tmp_path):
     cfg = _configure(PipelineConfig(), checkpoints, tmp_path)
-    cfg.densify.enabled = True  # every front end is ported; densify not yet
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'densify'"):
+    cfg.multi_view.distributed_ba = "on"  # every single-card option is ported; multi-GPU BA not yet
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, 'multi-GPU'"):
         SceneOptimizer(cfg, device="cpu").run(SyntheticAerialLoader(**LOADER))
 
 

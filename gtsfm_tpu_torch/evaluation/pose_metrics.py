@@ -1,8 +1,10 @@
 """Pose accuracy metrics: angular errors + pose AUC + two-view reports.
 
-Port of gtsfm_tpu/evaluation/pose_metrics.py (host numpy). Mirrors reference
+Port of gtsfm_tpu/evaluation/pose_metrics.py (host numpy; the GT-mesh
+classification casts rays on the device). Mirrors reference
 gtsfm/utils/metrics.py (:214 rotation/translation angle metrics, :516
-pose_auc) and gtsfm/common/two_view_estimation_report.py.
+pose_auc, :340 compute_ba_pose_metrics) and
+gtsfm/common/two_view_estimation_report.py.
 """
 
 from __future__ import annotations
@@ -13,6 +15,9 @@ import os
 
 import numpy as np
 import torch
+
+from gtsfm_tpu_torch import resolve_device
+from gtsfm_tpu_torch.geometry import alignment
 
 
 @dataclasses.dataclass
@@ -121,6 +126,24 @@ def pose_auc(errors_deg: np.ndarray, thresholds_deg=(1.0, 2.5, 5.0, 10.0)) -> di
     return out
 
 
+def compute_ba_pose_metrics(wRi_est, wti_est, wRi_gt, wti_gt, valid=None) -> dict:
+    """Sim(3)-aligned per-camera errors + summary (reference
+    utils/metrics.py:340 compute_ba_pose_metrics)."""
+    (Ra, ta), _ = alignment.align_poses_sim3(wRi_est, wti_est, wRi_gt, wti_gt, valid=valid)
+    rot = alignment.rotation_errors_deg(Ra, wRi_gt).cpu().numpy()
+    trans = np.linalg.norm(ta.cpu().numpy() - _np(wti_gt), axis=-1)
+    if valid is not None:
+        sel = _np(valid) > 0
+        rot, trans = rot[sel], trans[sel]
+    return {
+        "rotation_errors_deg": rot,
+        "translation_errors": trans,
+        "rotation_auc": pose_auc(rot),
+        "mean_rotation_error_deg": float(rot.mean()) if rot.size else float("nan"),
+        "mean_translation_error": float(trans.mean()) if trans.size else float("nan"),
+    }
+
+
 def add_gt_correspondence_metrics(
     reports: "dict[tuple[int, int], TwoViewEstimationReport]",
     pairs,
@@ -131,7 +154,8 @@ def add_gt_correspondence_metrics(
     wRi_gt, wti_gt, gt_valid,
     dist_threshold_px: float = 4.0,
     gt_mesh: "tuple[np.ndarray, np.ndarray] | None" = None,
-) -> None:
+    device: str | torch.device = "cuda",
+) -> dict | None:
     """Classify each pair's VERIFIED correspondences against the GT epipolar
     geometry (squared Sampson in pixels vs the GT fundamental matrix) and
     write the counts into the reports — reference
@@ -139,14 +163,18 @@ def add_gt_correspondence_metrics(
     epipolar_inlier_correspondences), surfaced per pair in the
     TwoViewEstimationReport like the reference's frontend summaries.
 
-    A GT mesh (astrovision's mesh ray-casting, reference
-    utils/metrics.py:69-96) is not ported yet and raises.
+    When gt_mesh=(vertices, faces) is given (astrovision: the loader ships a
+    GT surface mesh), classification uses mesh ray-casting instead — the
+    reference's preference too (utils/metrics.py:69-96): epipolar checks are
+    weak at the low-parallax geometry those scenes have. The rays of every
+    classified pair are cast together on ``device``
+    (mesh_metrics.mesh_inlier_correspondences_batched; each pair's numbers
+    equal the JAX package's pair-by-pair call), and the cast's counts
+    ({"rays", "faces", "ray_triangle_tests"}) are returned; without a mesh
+    the return is None.
     """
-    if gt_mesh is not None:
-        raise NotImplementedError(
-            "GT-mesh correspondence classification not ported to gtsfm_tpu_torch yet: "
-            "ROADMAP queue 1, 'evaluation report/dashboard/compare/mesh metrics'")
     mi = _np(match_idx)
+    mesh_jobs = []
     for k, (a, b) in enumerate(pairs):
         rep = reports.get((a, b))
         if rep is None or gt_valid is None or gt_valid[a] <= 0 or gt_valid[b] <= 0:
@@ -169,6 +197,9 @@ def add_gt_correspondence_metrics(
             continue
         uv1 = np.asarray(feats_uv[a])[ia]
         uv2 = np.asarray(feats_uv[b])[ib]
+        if gt_mesh is not None:
+            mesh_jobs.append((rep, a, b, uv1, uv2))
+            continue
         bRa = wRi_gt[b].T @ wRi_gt[a]
         bta = wRi_gt[b].T @ (wti_gt[a] - wti_gt[b])
         nrm = np.linalg.norm(bta)
@@ -194,6 +225,30 @@ def add_gt_correspondence_metrics(
         rep.num_inliers_gt_model = int(is_inl.sum())
         rep.inlier_ratio_gt_model = float(is_inl.mean())
         rep.gt_sampson_med_px = float(np.sqrt(np.median(d2)))
+    if gt_mesh is None:
+        return None
+    from gtsfm_tpu_torch.evaluation import mesh_metrics
+
+    dev = resolve_device(device)
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    results, info = mesh_metrics.mesh_inlier_correspondences_batched(
+        [(f32(uv1), f32(uv2), f32(cals[a]), f32(cals[b]), f32(wRi_gt[a]), f32(wti_gt[a]), f32(wRi_gt[b]),
+          f32(wti_gt[b])) for _, a, b, uv1, uv2 in mesh_jobs],
+        gt_mesh[0], gt_mesh[1], dist_threshold=dist_threshold_px)
+    if results:
+        sizes = [len(j[3]) for j in mesh_jobs]
+        inl = np.split(torch.cat([r[0] for r in results]).cpu().numpy(), np.cumsum(sizes)[:-1])
+        err = np.split(torch.cat([r[1] for r in results]).cpu().numpy(), np.cumsum(sizes)[:-1])
+        for (rep, *_), is_inl_m, err_m in zip(mesh_jobs, inl, err):
+            rep.num_inliers_gt_model = int(is_inl_m.sum())
+            rep.inlier_ratio_gt_model = float(is_inl_m.mean())
+            classified = err_m[np.isfinite(err_m)]
+            if classified.size:
+                rep.gt_sampson_med_px = float(np.median(classified))
+    return info
 
 
 def get_precision_recall_from_errors(

@@ -67,6 +67,22 @@ def rotation_errors_deg(wRi_a, wRi_b) -> torch.Tensor:
     return torch.rad2deg(lie.rotation_angular_distance(a, _t(wRi_b, a)))
 
 
+def translation_errors(wti_a, wti_b) -> torch.Tensor:
+    """Per-camera Euclidean center error."""
+    a = _t(wti_a)
+    return torch.linalg.vector_norm(a - _t(wti_b, a), dim=-1)
+
+
+def direction_angle_deg(u, v) -> torch.Tensor:
+    """Angle in degrees between translation directions, signed directions
+    (reference utils/geometry_comparisons.py:266-311)."""
+    u = _t(u)
+    v = _t(v, u)
+    un = u / torch.clamp(torch.linalg.vector_norm(u, dim=-1, keepdim=True), min=1e-12)
+    vn = v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True), min=1e-12)
+    return torch.rad2deg(torch.arccos(torch.clamp(torch.sum(un * vn, dim=-1), -1.0, 1.0)))
+
+
 def compare_global_poses(wRi_a, wti_a, wRi_b, wti_b, rot_err_thresh_deg: float = 5.0,
                          trans_err_atol: float = 1.0, trans_err_rtol: float = 0.1) -> bool:
     """Gauge-invariant pose-set comparison (reference
@@ -76,3 +92,11 @@ def compare_global_poses(wRi_a, wti_a, wRi_b, wti_b, rot_err_thresh_deg: float =
     if not bool(torch.all(rotation_errors_deg(Ra, wRi_b) < rot_err_thresh_deg)):
         return False
     return np.allclose(ta.cpu().numpy(), np.asarray(_t(wti_b).cpu()), atol=trans_err_atol, rtol=trans_err_rtol)
+
+
+def compute_cyclic_rotation_error(i1Ri0, i2Ri1, i2Ri0) -> torch.Tensor:
+    """Cycle error deg: || Log( inv(i2Ri0) @ i2Ri1 @ i1Ri0 ) ||
+    (reference utils/geometry_comparisons.py:355). Batched over leading dims."""
+    i1Ri0 = _t(i1Ri0)
+    cycle = _t(i2Ri0, i1Ri0).transpose(-1, -2) @ _t(i2Ri1, i1Ri0) @ i1Ri0
+    return torch.rad2deg(lie.rotation_angle(cycle))

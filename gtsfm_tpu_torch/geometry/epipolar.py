@@ -1,7 +1,7 @@
 """Epipolar geometry for RANSAC and two-view BA, batched PyTorch.
 
-Port of the part of gtsfm_tpu/geometry/epipolar.py that the essential-matrix
-verifier and two-view BA call: Sampson distances, the weighted normalized
+Port of gtsfm_tpu/geometry/epipolar.py: E <-> F with intrinsics, Sampson and
+symmetric epipolar distances, the weighted normalized
 8-point solver projected to the essential manifold, pose recovery from E with
 cheirality, midpoint depths, and the Faugeras-Lustman homography
 decomposition. The reference wraps cv2.findEssentialMat / cv2.recoverPose
@@ -49,6 +49,16 @@ def essential_from_pose(i2Ri1: torch.Tensor, i2ti1: torch.Tensor) -> torch.Tenso
     return lie.hat(i2ti1) @ i2Ri1
 
 
+def fundamental_from_essential(E: torch.Tensor, K1: torch.Tensor, K2: torch.Tensor) -> torch.Tensor:
+    """F = K2^-T E K1^-1 (reference utils/verification.py essential->fundamental)."""
+    return torch.linalg.inv(K2).transpose(-1, -2) @ E @ torch.linalg.inv(K1)
+
+
+def essential_from_fundamental(F: torch.Tensor, K1: torch.Tensor, K2: torch.Tensor) -> torch.Tensor:
+    """E = K2^T F K1 (reference utils/verification.py:97)."""
+    return K2.transpose(-1, -2) @ F @ K1
+
+
 def sampson_distance_sq(F: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     """Squared Sampson distance (reference utils/verification.py:170).
     x1, x2: (..., N, 2); F: (..., 3, 3). Returns (..., N)."""
@@ -59,6 +69,18 @@ def sampson_distance_sq(F: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor) -> 
     num = torch.sum(p2 * Fp1, dim=-1) ** 2
     den = Fp1[..., 0] ** 2 + Fp1[..., 1] ** 2 + Ftp2[..., 0] ** 2 + Ftp2[..., 1] ** 2
     return num / torch.clamp(den, min=1e-12)
+
+
+def symmetric_epipolar_distance_sq(F: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """Squared symmetric epipolar distance (reference utils/verification.py:129)."""
+    p1 = homogenize(x1)
+    p2 = homogenize(x2)
+    Fp1 = torch.einsum("...ij,...nj->...ni", F, p1)
+    Ftp2 = torch.einsum("...ji,...nj->...ni", F, p2)
+    num = torch.sum(p2 * Fp1, dim=-1) ** 2
+    d1 = torch.clamp(Fp1[..., 0] ** 2 + Fp1[..., 1] ** 2, min=1e-12)
+    d2 = torch.clamp(Ftp2[..., 0] ** 2 + Ftp2[..., 1] ** 2, min=1e-12)
+    return num * (1.0 / d1 + 1.0 / d2)
 
 
 def _normalize_points(x: torch.Tensor, w: torch.Tensor):

@@ -86,6 +86,13 @@ def verify_fundamental_batched(generator, uv1, uv2, mask, threshold_px, num_hypo
 # ---------------------------------------------------------------------------
 
 
+class LMedSResult(NamedTuple):
+    model: torch.Tensor  # (P, 3, 3) E or F
+    inlier_mask: torch.Tensor  # (P, N) float {0,1}
+    num_inliers: torch.Tensor  # (P,)
+    success: torch.Tensor  # (P,)
+
+
 def _masked_median_sq(d: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Lower median of d over the masked entries. d: (P, S, N), mask: (P, N)."""
     big = torch.finfo(d.dtype).max

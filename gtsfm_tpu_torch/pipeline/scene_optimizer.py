@@ -796,6 +796,7 @@ class SceneOptimizer:
                 frontend_reports["POST_ISP"], pairs, [np.asarray(f.uv) for f in feats], match_idx,
                 res_np.inlier_mask, cals, wRi_gt, wti_gt, gt_valid,
                 dist_threshold_px=cfg.two_view.estimation_threshold_px, gt_mesh=loader.get_gt_scene_mesh(),
+                device=dev,
             )
             gt_ratios = [r.inlier_ratio_gt_model for r in frontend_reports["POST_ISP"].values()
                          if r.inlier_ratio_gt_model is not None]

@@ -3,9 +3,9 @@
 Port of gtsfm_tpu/runner/__main__.py (the reference's per-dataset runner
 scripts + GtsfmRunnerBase, gtsfm/runner/gtsfm_runner_base.py:41-457): the
 same flags and defaults, presets resolved against gtsfm_tpu_torch/configs/.
-The reconstruction runs on one CUDA card. Loaders ``olsson``, ``colmap``
-and ``hilti`` run; the other loaders and the multi-host flags raise
-NotImplementedError naming their ROADMAP item.
+The reconstruction runs on one CUDA card with every loader of the JAX
+runner; the multi-host flags raise NotImplementedError naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,14 +16,6 @@ import os
 import sys
 
 _NOT_PORTED = "not ported to gtsfm_tpu_torch yet: ROADMAP queue 1, {}"
-# ROADMAP queue 1 item of each loader the port does not have yet.
-_LOADER_ITEMS = {
-    "mobilebrick": "'remaining host modules'",
-    "astrovision": "'remaining host modules'",
-    "onedsfm": "'remaining host modules'",
-    "yfcc": "'remaining host modules'",
-    "argoverse": "'remaining host modules'",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -83,8 +75,6 @@ def main(argv=None, device: str = "cuda") -> int:
 
     if args.multihost or args.coordinator_address is not None:
         raise NotImplementedError("--multihost / --coordinator_address " + _NOT_PORTED.format("'multi-GPU'"))
-    if args.loader in _LOADER_ITEMS:
-        raise NotImplementedError(f"--loader {args.loader} " + _NOT_PORTED.format(_LOADER_ITEMS[args.loader]))
 
     from gtsfm_tpu_torch.pipeline.config import PipelineConfig
     from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
@@ -112,11 +102,7 @@ def main(argv=None, device: str = "cuda") -> int:
             max_frame_lookahead=args.max_frame_lookahead,
             max_resolution=args.max_resolution,
         )
-    elif args.loader == "hilti":
-        from gtsfm_tpu_torch.loader.hilti import HiltiLoader
-
-        loader = HiltiLoader(args.dataset_root, max_resolution=args.max_resolution)
-    else:
+    elif args.loader == "colmap":
         from gtsfm_tpu_torch.loader.colmap import ColmapLoader
 
         loader = ColmapLoader(
@@ -124,6 +110,36 @@ def main(argv=None, device: str = "cuda") -> int:
             max_frame_lookahead=args.max_frame_lookahead,
             max_resolution=args.max_resolution,
         )
+    elif args.loader == "hilti":
+        from gtsfm_tpu_torch.loader.hilti import HiltiLoader
+
+        loader = HiltiLoader(args.dataset_root, max_resolution=args.max_resolution)
+    elif args.loader == "mobilebrick":
+        from gtsfm_tpu_torch.loader.mobilebrick import MobilebrickLoader
+
+        loader = MobilebrickLoader(
+            args.dataset_root, max_frame_lookahead=args.max_frame_lookahead,
+            max_resolution=args.max_resolution,
+        )
+    elif args.loader == "astrovision":
+        from gtsfm_tpu_torch.loader.astrovision import AstrovisionLoader
+
+        loader = AstrovisionLoader(
+            args.dataset_root, max_frame_lookahead=args.max_frame_lookahead,
+            max_resolution=args.max_resolution,
+        )
+    elif args.loader == "argoverse":
+        from gtsfm_tpu_torch.loader.argoverse import ArgoverseLoader
+
+        loader = ArgoverseLoader(args.dataset_root, max_resolution=args.max_resolution)
+    elif args.loader == "onedsfm":
+        from gtsfm_tpu_torch.loader.one_d_sfm import OneDSFMLoader
+
+        loader = OneDSFMLoader(args.dataset_root, max_resolution=args.max_resolution)
+    else:
+        from gtsfm_tpu_torch.loader.yfcc_imb import YfccImbLoader
+
+        loader = YfccImbLoader(args.dataset_root, max_resolution=args.max_resolution)
 
     result = optimizer.run(loader)
     err, _ = result.scene.reprojection_errors()

@@ -142,3 +142,15 @@ def test_build_key_covers_headers(tmp_path, monkeypatch):
     (tmp_path / "k.cu").write_text("// kernel, edited")
     assert len({first, second, third, cuda_build.library_path("k")}) == 4
     assert first.parent == cuda_build.BUILD_DIR and first.name.startswith("libk-")
+
+
+def test_timing_time_fn_on_the_card(cuda):
+    """common/timing.py: CUDA-event seconds of a 4096^3 float32 matmul
+    (137 GFLOP: at least 2 ms at the card's 67 TFLOP/s; asked: over 1 ms
+    and under a second)."""
+    from gtsfm_tpu_torch.common import timing
+
+    x = torch.ones(4096, 4096, device=cuda)
+    seconds = timing.time_fn(torch.matmul, x, x, n=3)
+    timing.sync()
+    assert 1e-3 < seconds < 1.0

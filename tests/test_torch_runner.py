@@ -134,10 +134,12 @@ def test_main_reconstructs_a_hilti_rig(tmp_path):
     assert len(lines) == 15 and all(ln[1:4] == ["OPENCV_FISHEYE", "480", "360"] for ln in lines)
 
 
-@pytest.mark.parametrize("argv", [["--loader", "yfcc"], ["--multihost"], ["--coordinator_address", "localhost:1234"]])
-def test_unported_options_raise(argv):
+@pytest.mark.parametrize("argv", [["--override", "multi_view.distributed_ba=on"], ["--multihost"],
+                                  ["--coordinator_address", "localhost:1234"]])
+def test_unported_options_raise(argv, olsson_run):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        runner.main(["--dataset_root", "unused"] + argv, device="cpu")
+        runner.main(["--dataset_root", olsson_run["data"], "--output_root", str(olsson_run["tmp"] / "unported"),
+                     "--no_cache"] + argv, device="cpu")
 
 
 def test_main_needs_a_card_by_default(tmp_path):

@@ -55,7 +55,19 @@ the card and on the CPU (mesh_cpu_check), BAL and Bundler round trips of
 run_sift's scene and LM on the card from a perturbed BAL scene
 (bal_survey), and the runner CLI with --loader astrovision, mobilebrick,
 onedsfm and argoverse, then compare_runs and the dashboard on two of their
-outputs (runner_cli). Each phase logs its seconds. Any failure raises and the
+outputs (runner_cli). Multi-GPU (parallel/): SceneOptimizer.run with the
+SIFT preset on the survey's renders in a process group of one rank over
+NCCL, with distributed BA and sharded detection on (distributed_survey:
+run_sift's bars, the rotations against run_sift's scene, the BA stages'
+seconds, LM iterations/s and all_reduce bytes a step, and one track-sharded
+step against the single-card dense solve); two spawned ranks over gloo on
+the one card (distributed_two_ranks: distributed LM on back_end_known's
+scene without and with priors, track-sharded and PCG, sharded SIFT and
+sharded RANSAC, then SceneOptimizer.run with the SIFT preset on the
+survey's renders into one output root with the caches on; the ranks equal,
+against one rank, the pipeline at run_sift's bars); and the runner CLI launched with --coordinator_address and through
+torch.distributed.run with --multihost (runner_cli). Each phase logs its
+seconds. Any failure raises and the
 exit code is non-zero. The last two lines of standard output
 are a JSON line of per-kernel numbers and the result line
 {"ok": true, "device": {...}}. Without a card it exits non-zero and prints
@@ -996,6 +1008,7 @@ def back_end_known(dev, num_images: int = 128, rows: int = 8, max_keypoints: int
         raise AssertionError(f"BA stages did not report iterations: {ba_stages}")
     if profile:
         out["profile"] = profile_back_end(opt, loader)
+    out["_scene"] = final
     return out
 
 
@@ -1659,10 +1672,10 @@ def float64_stage_memory():
 
     records, orig = [], ba.lm_optimize_float64
 
-    def recorded(scene, cfg=ba.BAConfig(), priors=None):
+    def recorded(scene, cfg=ba.BAConfig(), priors=None, mesh=None):
         torch.cuda.synchronize()
         start, peak0 = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
-        out = orig(scene, cfg, priors)
+        out = orig(scene, cfg, priors, mesh)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         records.append(dict(cameras=scene.num_cameras_padded, measurements=scene.meas_uv.shape[0],
@@ -1847,6 +1860,9 @@ def sift_config(output_root: str):
     return cfg
 
 
+BA_STAGE_KEYS = ("iterations", "final_cost", "wall_lm_sec", "lm_iters_per_sec")
+
+
 def _files(root: str) -> list[str]:
     return sorted(os.path.relpath(os.path.join(d, f), root) for d, _, fs in os.walk(root) for f in fs)
 
@@ -1878,7 +1894,10 @@ def run_sift(dev, loader):
     groups = metric_groups(cold)
     kpts = np.asarray(groups["correspondence_metrics"]["num_keypoints_per_image"])
     rot = np.asarray(groups["ba_pose_error_metrics"]["rotation_angle_error_deg"])
+    ba_metrics = groups["bundle_adjustment_metrics"]
     out = dict(
+        ba_stages=[{k: ba_metrics.get(f"stage{si}_{k}") for k in BA_STAGE_KEYS}
+                   for si in range(len(opt.config.multi_view.ba_reproj_thresholds_px))],
         images=len(loader), keypoints_min_median_max=[float(kpts.min()), float(np.median(kpts)), float(kpts.max())],
         pairs=groups["retriever_metrics"]["num_retrieved_image_pairs"],
         verified_pairs=groups["two_view_metrics"]["num_verified_pairs"],
@@ -3079,6 +3098,496 @@ def patchmatchnet_phase(dev, num_images: int = 16, rows: int = 2):
     return out
 
 
+DIST_STEP_REL = 1e-4  # track-sharded step vs the single-card dense solve (dc, dp), float64, of the largest entry
+TWO_RANK_COST_REL = 1e-3  # two ranks' final LM cost against one rank's, relative
+TWO_RANK_PAIRS_OK = 0.95  # share of known_pairs within 1 deg on two ranks
+DIST_STAGE_KEYS = BA_STAGE_KEYS + ("devices", "all_reduce_calls", "all_reduce_bytes", "all_gather_bytes")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _relative_rotations(wRi: np.ndarray, live: np.ndarray) -> np.ndarray:
+    """R_i0^T R_i of the live cameras, i0 the first of them (free of the BA
+    gauge's global rotation)."""
+    R = np.asarray(wRi, np.float64)[live]
+    return np.einsum("ji,njk->nik", R[0], R)
+
+
+def perturbed_scene(scene, rot_deg: float = 0.1, trans: float = 0.01, pt: float = 0.01, seed: int = 0):
+    """The scene with every live camera but the first rotated by rot_deg about
+    a random axis and moved by N(0, trans), and every point moved by N(0, pt)
+    (seeded): a BA problem a few LM steps from its optimum."""
+    from gtsfm_tpu_torch.geometry import lie
+
+    rng = np.random.default_rng(seed)
+    n = scene.num_cameras_padded
+    dw = rng.normal(size=(n, 3))
+    dw *= np.deg2rad(rot_deg) / np.linalg.norm(dw, axis=-1, keepdims=True)
+    dt = rng.normal(size=(n, 3)) * trans
+    first = int(np.argmax(scene.camera_mask.cpu().numpy() > 0))
+    dw[first] = 0
+    dt[first] = 0
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32, device=scene.device)  # noqa: E731
+    return scene.replace(wRi=lie.so3_exp(t(dw)) @ scene.wRi, wti=scene.wti + t(dt),
+                         points=scene.points + t(rng.normal(size=tuple(scene.points.shape)) * pt))
+
+
+def tracksharded_step_check(dev, mesh, scene):
+    """One track-sharded step (ba._schur_solve_dense on ``mesh``, its
+    collectives made) against the single-card dense solve (no mesh) on the
+    same scene and lambda, in float32 and in float64: max |difference| of
+    dc and dp over the largest entry, and the bytes the step's collectives
+    sent."""
+    from gtsfm_tpu_torch.bundle import ba
+
+    lam = ba.BAConfig().lambda_init
+    L = ba.auto_bucket_l(scene)
+    cfg = ba.BAConfig(bucket_l=L, schur_bf16=False)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        sc, active = ba._sorted_measurements(ba._cast(scene, dtype), L)
+        (lo, hi), tracks = ba._rank_rows(sc, mesh, dense=True)
+        rows = ba._rows(sc, lo, hi)
+        blocks, _ = ba._build_blocks(rows, cfg, ba._gauge_free(sc), active[lo:hi])
+        calls0, bytes0 = dict(mesh.collective_calls), dict(mesh.collective_bytes)
+        dc, dp = ba._schur_solve_dense(*blocks, rows, lam, cfg, False, None, mesh, tracks)
+        blocks, _ = ba._build_blocks(sc, cfg, ba._gauge_free(sc), active)
+        dc1, dp1 = ba._schur_solve_dense(*blocks, sc, lam, cfg, False)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        rel = lambda a, b: float((a - b).abs().max() / b.abs().max())  # noqa: E731
+        out[str(dtype).replace("torch.", "")] = dict(
+            dc_rel=rel(dc, dc1), dp_rel=rel(dp, dp1), dc_max=float(dc1.abs().max()), dp_max=float(dp1.abs().max()),
+            finite=bool(torch.isfinite(dc).all() and torch.isfinite(dp).all()),
+            **{f"{k}_{u}": c[k] - c0[k] for k in ("all_reduce", "all_gather")
+               for u, c, c0 in (("calls", mesh.collective_calls, calls0), ("bytes", mesh.collective_bytes, bytes0))})
+    return dict(lam=lam, bucket_l=L, cameras=scene.num_cameras_padded, tracks=scene.num_tracks_padded, **out)
+
+
+def distributed_survey(dev, loader, sift_out):
+    """SceneOptimizer.run with run_sift's configuration (the SIFT preset at
+    its full width, 4096 keypoints, 512-pair chunks) on the survey's renders,
+    in a process group of one rank (NCCL on a card) with
+    multi_view.distributed_ba="on" and frontend.detect_sharded=True: global
+    BA goes through run_ba_with_filtering_distributed's track-sharded steps
+    and their collectives. run_sift's bars (>= 95% of the cameras, rotation
+    error after Sim(3) max <= 1 deg and median <= 0.1 deg, mean reprojection
+    <= 1 px, the output files), two all_reduces a LM iteration (the step's
+    and the cost's) plus the first cost; logged: the rotations against run_sift's scene, each BA
+    stage's seconds and LM iterations/s beside run_sift's, and the bytes of
+    each step's all_reduce. Then one track-sharded step on the card against
+    the single-card dense solve (tracksharded_step_check) on the run's scene,
+    perturbed: dc and dp within DIST_STEP_REL in float64 (float32 logged).
+    The process group is destroyed at the end."""
+    import torch.distributed as dist
+
+    from gtsfm_tpu_torch.ops import attention
+    from gtsfm_tpu_torch.parallel import distributed, multihost
+    from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
+
+    want_backend = "nccl" if dev.type == "cuda" else "gloo"
+    port = free_port()
+    if not multihost.initialize(f"127.0.0.1:{port}", 1, 0, device=dev):
+        raise AssertionError("a process group existed before distributed_survey")
+    try:
+        if dist.get_backend() != want_backend or dist.get_world_size() != 1:
+            raise AssertionError(f"process group {dist.get_backend()} of {dist.get_world_size()} ranks")
+        out_root = os.path.join(ROOT, "build", "chip_smoke_distributed_survey")
+        shutil.rmtree(out_root, ignore_errors=True)
+        cfg = sift_config(out_root)
+        cfg.multi_view.distributed_ba = "on"
+        cfg.frontend.detect_sharded = True
+        opt = SceneOptimizer(cfg, device=dev)
+        attention.flash_attention.launches = 0
+        t0 = time.perf_counter()
+        result = opt.run(loader, save_outputs=True)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        final = result.scene
+        groups = metric_groups(result)
+        rot = np.asarray(groups["ba_pose_error_metrics"]["rotation_angle_error_deg"])
+        ba_metrics = groups["bundle_adjustment_metrics"]
+        stages = [{k: ba_metrics.get(f"stage{si}_{k}") for k in DIST_STAGE_KEYS}
+                  for si in range(len(cfg.multi_view.ba_reproj_thresholds_px))]
+        for st in stages:
+            st["all_reduce_bytes_per_step"] = st["all_reduce_bytes"] / max(st["iterations"], 1)
+        ref = sift_out["_scene"]
+        live = (final.camera_mask.cpu().numpy() > 0) & (ref.camera_mask.cpu().numpy() > 0)
+        vs_sift = rot_errors_deg(_relative_rotations(final.wRi.cpu().numpy(), live),
+                                 _relative_rotations(ref.wRi.cpu().numpy(), live))
+        files = _files(out_root)
+        out = dict(
+            backend=want_backend, world_size=1, seconds=seconds, stage_seconds=dict(opt.stage_seconds),
+            run_sift_stage_seconds=sift_out["runs"]["cold"]["stage_seconds"], cameras=final.num_cameras(),
+            rot_err_max_deg=float(rot.max()), rot_err_median_deg=float(np.median(rot)),
+            mean_reproj_px=float(final.mean_reprojection_error()), ba_stages=stages,
+            run_sift_ba_stages=sift_out["ba_stages"], rot_vs_run_sift_max_deg=float(vs_sift.max()),
+            rot_vs_run_sift_median_deg=float(np.median(vs_sift)),
+            attention_launches=int(attention.flash_attention.launches))
+        log(f"distributed_survey ({want_backend}, world size 1): {len(loader)} images, {seconds:.2f} s; "
+            f"{out['cameras']} cameras, rotation error after Sim(3) max {out['rot_err_max_deg']:.4f} deg, median "
+            f"{out['rot_err_median_deg']:.4f} deg, mean reprojection {out['mean_reproj_px']:.4f} px; relative "
+            f"rotations against run_sift's scene max {out['rot_vs_run_sift_max_deg']:.2e} deg, median "
+            f"{out['rot_vs_run_sift_median_deg']:.2e} deg; back_end/ba {opt.stage_seconds['back_end/ba']:.3f} s "
+            f"(run_sift cold {out['run_sift_stage_seconds']['back_end/ba']:.3f} s); attention launches "
+            f"{out['attention_launches']}")
+        for si, (st, st1) in enumerate(zip(stages, sift_out["ba_stages"])):
+            log(f"  BA stage {si}: {st['iterations']} LM iterations in {st['wall_lm_sec']:.3f} s "
+                f"({st['lm_iters_per_sec']:.2f} it/s; run_sift {st1['iterations']} in {st1['wall_lm_sec']:.3f} s, "
+                f"{st1['lm_iters_per_sec']:.2f} it/s), final cost {st['final_cost']:.1f} (run_sift "
+                f"{st1['final_cost']:.1f}); {st['all_reduce_calls']} all_reduce, "
+                f"{st['all_reduce_bytes_per_step'] / 1e6:.3f} MB a step; all_gather {st['all_gather_bytes'] / 1e6:.3f} "
+                f"MB in all")
+        missing = [f for f in SIFT_FILES if f not in files]
+        if missing:
+            raise AssertionError(f"distributed_survey wrote no {missing}")
+        if out["cameras"] < np.ceil(0.95 * len(loader)):
+            raise AssertionError(f"only {out['cameras']}/{len(loader)} cameras in the final scene")
+        if not (out["rot_err_max_deg"] <= 1.0 and out["rot_err_median_deg"] <= 0.1):
+            raise AssertionError(f"rotation errors too large: {out['rot_err_max_deg']}, {out['rot_err_median_deg']}")
+        if not out["mean_reproj_px"] <= 1.0:
+            raise AssertionError(f"mean reprojection error {out['mean_reproj_px']} px > 1 px")
+        if any(st["devices"] != 1 or st["all_reduce_calls"] != 2 * st["iterations"] + 1 or not st["iterations"]
+               for st in stages):
+            raise AssertionError(f"distributed BA stages: {stages}")
+
+        mesh = distributed.make_mesh(device=dev)
+        if mesh.size != 1 or mesh.backend != want_backend:
+            raise AssertionError(f"mesh {mesh}")
+        step = tracksharded_step_check(dev, mesh, perturbed_scene(final))
+        out["step_check"] = step
+        for name in ("float32", "float64"):
+            c = step[name]
+            log(f"distributed_survey step check {name}: dc {c['dc_rel']:.3e}, dp {c['dp_rel']:.3e} of the largest "
+                f"entry (|dc| {c['dc_max']:.3e}, |dp| {c['dp_max']:.3e}); all_reduce {c['all_reduce_calls']} call, "
+                f"{c['all_reduce_bytes'] / 1e6:.3f} MB; all_gather {c['all_gather_bytes'] / 1e6:.3f} MB "
+                f"(N {step['cameras']}, T {step['tracks']}, bucket_l {step['bucket_l']}, lambda {step['lam']})")
+        c = step["float64"]
+        if not (c["finite"] and c["dc_rel"] <= DIST_STEP_REL and c["dp_rel"] <= DIST_STEP_REL):
+            raise AssertionError(f"track-sharded step against the single-card solve: {step}")
+        return out
+    finally:
+        multihost.shutdown()
+
+
+TWO_RANK_LM_RUNS = ("lm", "lm_priors", "lm_pcg_priors")
+
+
+def _two_rank_compute(mesh, z: dict, dev) -> dict:
+    """distributed_two_ranks' work on ``mesh``: distributed_lm_optimize on
+    the ba_ scene three times (track-sharded; track-sharded with the pr_
+    priors; measurement-sharded PCG with the priors), image_sharded_detect
+    with SIFT at 4096 keypoints on the det_ images (4 a call) and
+    pair_sharded_verify on the pv_ pairs at the default two-view settings,
+    then two-view BA on its gathered results. Returns numpy outputs."""
+    from gtsfm_tpu_torch.bundle import ba
+    from gtsfm_tpu_torch.common.scene import SceneData
+    from gtsfm_tpu_torch.frontend import sift
+    from gtsfm_tpu_torch.parallel import distributed
+    from gtsfm_tpu_torch.pipeline.config import PipelineConfig
+    from gtsfm_tpu_torch.twoview import estimator
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t = lambda x: torch.as_tensor(np.array(x), device=dev)  # noqa: E731
+    sc = SceneData(**{f: t(z[f"ba_{f}"]) for f in (
+        "wRi", "wti", "cal", "camera_mask", "points", "track_mask", "meas_cam", "meas_track", "meas_uv", "meas_mask")})
+    priors = ba.RelativePosePriors(*(t(z[f"pr_{k}"]) for k in ba.RelativePosePriors._fields))
+    out = {}
+    for name, cfg, pr in (("lm", ba.BAConfig(max_iterations=20, bucket_l=ba.auto_bucket_l(sc)), None),
+                          ("lm_priors", ba.BAConfig(max_iterations=20, bucket_l=ba.auto_bucket_l(sc)), priors),
+                          ("lm_pcg_priors", ba.BAConfig(max_iterations=20), priors)):
+        bytes0 = mesh.collective_bytes["all_reduce"]
+        t0 = time.perf_counter()
+        final, st = distributed.distributed_lm_optimize(mesh, sc, cfg, priors=pr)
+        sync()
+        out.update({f"{name}_seconds": time.perf_counter() - t0, f"{name}_cost": np.asarray(
+            [st["initial_cost"], st["final_cost"]]), f"{name}_iterations": st["iterations"],
+            f"{name}_wRi": final.wRi.cpu().numpy(), f"{name}_wti": final.wti.cpu().numpy(),
+            f"{name}_points": final.points.cpu().numpy(),
+            f"{name}_all_reduce_bytes": mesh.collective_bytes["all_reduce"] - bytes0})
+    t0 = time.perf_counter()
+    feats = distributed.image_sharded_detect(
+        mesh, lambda g: sift.detect_and_describe(torch.as_tensor(g, device=dev), max_keypoints=4096), z["det_images"],
+        batch=4)
+    sync()
+    out["det_seconds"] = time.perf_counter() - t0
+    out.update({f"det_{k}": v.cpu().numpy() for k, v in feats._asdict().items()})
+    tv = PipelineConfig().two_view
+    x1, x2, f = t(z["pv_x1"]), t(z["pv_x2"]), float(z["pv_f"])
+    t0 = time.perf_counter()
+    res = distributed.pair_sharded_verify(mesh, 0, x1, x2, torch.ones(x1.shape[:2], device=dev),
+                                          tv.estimation_threshold_px / f, num_hypotheses=tv.num_hypotheses,
+                                          min_inliers=tv.min_inliers, min_inlier_ratio=tv.min_inlier_ratio)
+    sync()
+    out["pv_seconds"] = time.perf_counter() - t0
+    # two-view BA on the gathered results, as the pipeline and known_geometry refine them
+    refined = estimator.two_view_ba_batched(res.i2Ri1, res.i2Ui1, x1, x2, res.inlier_mask,
+                                            torch.full((x1.shape[0],), tv.ba_reproj_thresh_px / f, device=dev),
+                                            iterations=tv.ba_iterations)
+    out.update(pv_i2Ri1=res.i2Ri1.cpu().numpy(), pv_success=res.success.cpu().numpy(),
+               pv_refined_i2Ri1=refined.i2Ri1.cpu().numpy(), pv_num_inliers=res.num_inliers.cpu().numpy())
+    return out
+
+
+def _two_rank_pipeline(dev, loader_pickle: str, out_root: str) -> dict:
+    """SceneOptimizer.run with run_sift's configuration (the SIFT preset at
+    its full width) on the survey's renders (the loader, pickled), the feature
+    and two-view caches on, in this rank's process group: every rank runs
+    the pipeline into the one output root and cache directory, which the
+    first rank alone writes; the sharded stages split across the ranks.
+    Returns this rank's final scene, its metrics and, once every rank is
+    done, the files in the output root."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
+
+    with open(loader_pickle, "rb") as fh:
+        loader = pickle.load(fh)
+    cfg = sift_config(out_root)
+    cfg.enable_cache = True
+    cfg.cache_dir = os.path.join(out_root, "cache")
+    opt = SceneOptimizer(cfg, device=dev)
+    t0 = time.perf_counter()
+    result = opt.run(loader, save_outputs=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    dist.barrier()
+    groups = metric_groups(result)
+    rot = np.asarray(groups["ba_pose_error_metrics"]["rotation_angle_error_deg"])
+    ba_metrics = groups["bundle_adjustment_metrics"]
+    stages = [{k: ba_metrics.get(f"stage{si}_{k}") for k in DIST_STAGE_KEYS}
+              for si in range(len(cfg.multi_view.ba_reproj_thresholds_px))]
+    sc = result.scene
+    return dict(pipe_seconds=seconds, pipe_stage_seconds=np.str_(json.dumps(opt.stage_seconds)),
+                pipe_ba_stages=np.str_(json.dumps(stages)),
+                pipe_ba=np.asarray([[st[k] for k in ("devices", "all_reduce_calls", "iterations", "final_cost")]
+                                    for st in stages], np.float64),
+                **{f"pipe_{k}": getattr(sc, k).cpu().numpy() for k in ("wRi", "wti", "camera_mask", "points",
+                                                                     "track_mask", "meas_mask")},
+                pipe_rot_err_deg=np.asarray([rot.max(), np.median(rot)]),
+                pipe_mean_reproj_px=np.float64(sc.mean_reprojection_error()), pipe_files=np.asarray(_files(out_root)))
+
+
+def _two_rank_worker(rank: int, device: str, store: str, inputs: str, out_dir: str) -> None:
+    """A spawned rank of distributed_two_ranks: gloo with its tensors on
+    ``device`` (every rank on the same card), _two_rank_compute, then
+    rank{r}.npz (a traceback in rank{r}.err on failure)."""
+    import traceback
+
+    try:
+        sys.path.insert(0, ROOT)
+        from gtsfm_tpu_torch.parallel import distributed, multihost
+
+        dev = torch.device(device)
+        multihost.initialize("file://" + store, 2, rank, device=dev, backend="gloo", timeout_s=180)
+        try:
+            with np.load(inputs) as f:
+                z = {k: f[k] for k in f.files}
+            out = _two_rank_compute(distributed.make_mesh(device=dev), z, dev)
+            out.update(_two_rank_pipeline(dev, str(z["pipe_images"]), str(z["pipe_out"])))
+            np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+        finally:
+            multihost.shutdown()
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+
+
+def sequential_priors(scene, weight: float = 10.0) -> dict:
+    """Between factors (i, j) from each live camera to the next at the
+    scene's own relative poses (numpy arrays under pr_ keys)."""
+    live = np.flatnonzero(scene.camera_mask.cpu().numpy() > 0)
+    a, b = live[:-1], live[1:]
+    R, t = scene.wRi.cpu().numpy().astype(np.float64), scene.wti.cpu().numpy().astype(np.float64)
+    aRb = np.einsum("eji,ejk->eik", R[a], R[b])
+    atb = np.einsum("eji,ej->ei", R[a], t[b] - t[a])
+    return dict(pr_edges_a=a.astype(np.int64), pr_edges_b=b.astype(np.int64), pr_aRb=aRb.astype(np.float32),
+                pr_atb=atb.astype(np.float32), pr_weight=np.full(len(a), weight, np.float32))
+
+
+def distributed_two_ranks(dev, scene, loader, sift_out, num_images: int = 8, timeout_s: float = 420.0):
+    """Two spawned ranks joined over gloo, both on the one card (NCCL refuses
+    two ranks on one GPU): distributed_lm_optimize on back_end_known's
+    128-image scene, perturbed (perturbed_scene), three times
+    (TWO_RANK_LM_RUNS: track-sharded, track-sharded with sequential priors,
+    measurement-sharded PCG with the priors); image_sharded_detect with SIFT
+    on the survey's first 8 renders; pair_sharded_verify on
+    known_pairs(64, 1024); then SceneOptimizer.run with run_sift's
+    configuration on all the survey's renders (_two_rank_pipeline), the
+    caches on, both ranks into one output root. The ranks' outputs must be
+    equal (their pipeline scenes bit for bit). Against one rank (this
+    process, no process group): each LM's final cost within
+    TWO_RANK_COST_REL, the detection's keypoints within SIFT_CPU_UV_PX
+    (recall SIFT_CPU_RECALL) with descriptors within SIFT_CPU_DESC, and
+    TWO_RANK_PAIRS_OK of the pairs verified and within 1 deg of the truth
+    after two-view BA (as known_geometry holds the unsharded RANSAC;
+    RANSAC's own share is logged). The pipeline meets run_sift's bars (>=
+    95% of the cameras, rotation error after Sim(3) max <= 1 deg and median
+    <= 0.1 deg, mean reprojection <= 1 px, the output files), its BA runs on
+    two ranks, and the caches hold every image's features; its relative
+    rotations against run_sift's scene are logged. Each rank joins with a
+    timeout; a rank that fails or times out fails the phase."""
+    import pickle
+
+    from scipy.spatial import cKDTree
+
+    from gtsfm_tpu_torch.common.image import to_grayscale
+    from gtsfm_tpu_torch.geometry import lie
+    from gtsfm_tpu_torch.parallel import distributed
+
+    root = os.path.join(ROOT, "build", "chip_smoke_two_ranks")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    sc = perturbed_scene(scene)
+    (x1, x2, R_true, _), f = known_pairs(64, 1024)
+    renders = os.path.join(root, "survey.pickle")
+    with open(renders, "wb") as fh:
+        pickle.dump(loader, fh)  # with its renders
+    z = dict({f"ba_{k}": getattr(sc, k).cpu().numpy() for k in (
+        "wRi", "wti", "cal", "camera_mask", "points", "track_mask", "meas_cam", "meas_track", "meas_uv", "meas_mask")},
+        **sequential_priors(scene),
+        det_images=np.stack([to_grayscale(loader.get_image(i)[0].value_array) for i in range(num_images)]),
+        pv_x1=x1, pv_x2=x2, pv_f=np.float64(f), pipe_images=np.str_(renders),
+        pipe_out=np.str_(os.path.join(root, "pipeline")))
+    inputs = os.path.join(root, "inputs.npz")
+    np.savez(inputs, **z)
+    device = f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda" else "cpu"
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()  # the two ranks' pipelines share the card with this process
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_two_rank_worker, args=(r, device, os.path.join(root, "store"), inputs, root))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(max(1.0, timeout_s - (time.perf_counter() - t0)))
+    finally:
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    spawn_s = time.perf_counter() - t0
+    errors = []
+    for r in range(2):
+        err = os.path.join(root, f"rank{r}.err")
+        if os.path.exists(err):
+            with open(err) as fh:
+                errors.append(f"rank {r}: {fh.read()}")
+    if hung or errors or any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"two ranks: hung {hung}, exit codes {[p.exitcode for p in procs]}; {errors}")
+    ranks = []
+    for r in range(2):
+        with np.load(os.path.join(root, f"rank{r}.npz")) as fz:
+            ranks.append({k: fz[k] for k in fz.files})
+    timed = tuple(f"{n}_seconds" for n in TWO_RANK_LM_RUNS) + (
+        "det_seconds", "pv_seconds", "pipe_seconds", "pipe_stage_seconds", "pipe_ba_stages")
+    unequal = [k for k in ranks[0] if k not in timed and not np.array_equal(ranks[0][k], ranks[1][k])]
+    one = _two_rank_compute(distributed.make_mesh(device=dev), z, dev)
+    two = ranks[0]
+    lm = {}
+    for n in TWO_RANK_LM_RUNS:
+        (c0, c2), c1 = two[f"{n}_cost"], one[f"{n}_cost"][1]
+        lm[n] = dict(cost=[float(c0), float(c2)], cost_one_rank=float(c1), cost_rel=float(abs(c2 - c1) / c1),
+                     iterations=[int(two[f"{n}_iterations"]), int(one[f"{n}_iterations"])],
+                     seconds=[float(two[f"{n}_seconds"]), float(one[f"{n}_seconds"])],
+                     all_reduce_bytes=int(two[f"{n}_all_reduce_bytes"]))
+    recall, desc_err, identical = [], 0.0, True
+    for b in range(num_images):
+        m2, m1 = two["det_mask"][b] > 0, one["det_mask"][b] > 0
+        dist, nn = cKDTree(two["det_uv"][b][m2]).query(one["det_uv"][b][m1])
+        ok = dist <= SIFT_CPU_UV_PX
+        recall.append(float(ok.mean()))
+        desc_err = max(desc_err, float(np.abs(one["det_descriptor"][b][m1][ok]
+                                              - two["det_descriptor"][b][m2][nn[ok]]).max()))
+        identical &= all(np.array_equal(two[f"det_{k}"][b], one[f"det_{k}"][b]) for k in ("uv", "descriptor", "mask"))
+    err, err_ransac = (np.degrees(lie.rotation_angular_distance(torch.as_tensor(two[k]), torch.as_tensor(
+        R_true)).numpy()) for k in ("pv_refined_i2Ri1", "pv_i2Ri1"))
+    pairs_ok = float(np.mean(two["pv_success"] & (err <= 1.0)))
+    same_success = float(np.mean(two["pv_success"] == one["pv_success"]))
+    files = [str(x) for x in two["pipe_files"]]
+    ref = sift_out["_scene"]
+    live = (two["pipe_camera_mask"] > 0) & (ref.camera_mask.cpu().numpy() > 0)
+    vs_sift = rot_errors_deg(_relative_rotations(two["pipe_wRi"], live),
+                             _relative_rotations(ref.wRi.cpu().numpy(), live))
+    pipe = dict(seconds=[float(r["pipe_seconds"]) for r in ranks],
+                stage_seconds=json.loads(str(two["pipe_stage_seconds"])),
+                ba_stages=json.loads(str(two["pipe_ba_stages"])), cameras=int((two["pipe_camera_mask"] > 0).sum()),
+                rot_err_max_deg=float(two["pipe_rot_err_deg"][0]), rot_err_median_deg=float(two["pipe_rot_err_deg"][1]),
+                mean_reproj_px=float(two["pipe_mean_reproj_px"]), rot_vs_run_sift_max_deg=float(vs_sift.max()),
+                rot_vs_run_sift_median_deg=float(np.median(vs_sift)),
+                feature_cache_files=sum(x.startswith("cache/features/") for x in files),
+                two_view_cache_files=sum(x.startswith("cache/two_view/") for x in files))
+    out = dict(spawn_and_join_s=spawn_s, ranks_equal=not unequal, unequal=unequal, lm=lm, det_recall=recall,
+               det_desc_max_abs_err=desc_err, det_identical=bool(identical),
+               det_seconds=[float(two["det_seconds"]), float(one["det_seconds"])], pv_pairs=len(err),
+               pv_within_1deg=pairs_ok, pv_rot_err_median_deg=float(np.median(err)),
+               pv_ransac_within_1deg=float(np.mean(two["pv_success"] & (err_ransac <= 1.0))),
+               pv_ransac_rot_err_median_deg=float(np.median(err_ransac)), pv_success_same_as_one_rank=same_success,
+               pv_seconds=[float(two["pv_seconds"]), float(one["pv_seconds"])], pipeline=pipe)
+    log(f"distributed_two_ranks (gloo, both ranks on {device}): spawn to join {spawn_s:.2f} s; ranks equal "
+        f"{out['ranks_equal']} {unequal}")
+    for n, v in lm.items():
+        log(f"  {n}: cost {v['cost'][0]:.1f} -> {v['cost'][1]:.3f} in {v['iterations'][0]} iterations "
+            f"({v['seconds'][0]:.2f} s; one rank {v['cost_one_rank']:.3f} in {v['iterations'][1]}, "
+            f"{v['seconds'][1]:.2f} s), relative difference {v['cost_rel']:.2e} (limit {TWO_RANK_COST_REL}); "
+            f"all_reduce {v['all_reduce_bytes'] / 1e6:.2f} MB a rank")
+    log(f"  SIFT on {num_images} renders: recall {recall} within {SIFT_CPU_UV_PX} px, descriptors {desc_err:.2e}, "
+        f"identical {identical} ({out['det_seconds'][0]:.2f} s, one rank {out['det_seconds'][1]:.2f} s); RANSAC "
+        f"{len(err)} pairs ({out['pv_seconds'][0]:.2f} s, one rank {out['pv_seconds'][1]:.2f} s): "
+        f"{out['pv_ransac_within_1deg']:.3f} within 1 deg, median {out['pv_ransac_rot_err_median_deg']:.4f} deg, "
+        f"success as one rank's on {same_success:.3f}; after two-view BA {pairs_ok:.3f} within 1 deg (limit "
+        f"{TWO_RANK_PAIRS_OK}), median {out['pv_rot_err_median_deg']:.4f} deg")
+    log(f"  pipeline on {len(loader)} renders, two ranks: {pipe['seconds']} s; {pipe['cameras']} cameras, rotation "
+        f"error after Sim(3) max {pipe['rot_err_max_deg']:.4f} deg, median {pipe['rot_err_median_deg']:.4f} deg, "
+        f"mean reprojection {pipe['mean_reproj_px']:.4f} px; relative rotations against run_sift's scene max "
+        f"{pipe['rot_vs_run_sift_max_deg']:.2e} deg, median {pipe['rot_vs_run_sift_median_deg']:.2e} deg; caches "
+        f"{pipe['feature_cache_files']} feature files, {pipe['two_view_cache_files']} two-view; stage seconds "
+        f"{json.dumps({k: round(v, 4) for k, v in pipe['stage_seconds'].items()})}; BA stages {pipe['ba_stages']}")
+    if unequal:
+        raise AssertionError(f"the two ranks' outputs differ: {unequal}")
+    for n, v in lm.items():
+        if not (v["cost"][1] < v["cost"][0] and v["cost_rel"] <= TWO_RANK_COST_REL):
+            raise AssertionError(f"two-rank {n}: {v}")
+    if min(recall) < SIFT_CPU_RECALL or desc_err > SIFT_CPU_DESC:
+        raise AssertionError(f"two-rank SIFT against one rank: recall {recall}, descriptors {desc_err}")
+    if pairs_ok < TWO_RANK_PAIRS_OK:
+        raise AssertionError(f"two-rank RANSAC: {pairs_ok} of the pairs within 1 deg")
+    missing = [x for x in SIFT_FILES if x not in files]
+    if missing or [x for x in files if x.endswith(".tmp") or ".tmp." in x]:
+        raise AssertionError(f"two-rank pipeline files: missing {missing} of {files}")
+    if pipe["cameras"] < np.ceil(0.95 * len(loader)):
+        raise AssertionError(f"two-rank pipeline: only {pipe['cameras']}/{len(loader)} cameras")
+    if not (pipe["rot_err_max_deg"] <= 1.0 and pipe["rot_err_median_deg"] <= 0.1 and pipe["mean_reproj_px"] <= 1.0):
+        raise AssertionError(f"two-rank pipeline errors too large: {pipe}")
+    if pipe["feature_cache_files"] != len(loader) or any(
+            st["devices"] != 2 or st["all_reduce_calls"] != 2 * st["iterations"] + 1 for st in pipe["ba_stages"]):
+        raise AssertionError(f"two-rank pipeline caches or BA stages: {pipe}")
+    return out
+
+
+def _colmap_relative_rotations(model: str) -> np.ndarray:
+    """R_0^T R_i of a COLMAP text model's cameras, in image order."""
+    from gtsfm_tpu_torch.loader.colmap import ColmapLoader
+
+    loader = ColmapLoader(model)
+    R = np.stack([np.asarray(loader.get_camera_pose(i)[0], np.float64) for i in range(len(loader))])
+    return np.einsum("ji,njk->nik", R[0], R)
+
+
 def runner_cli(num_images: int = 12):
     """python -m gtsfm_tpu_torch.runner's main() with the default
     configuration (plots off, as in sift_config) on an Olsson folder (JPG +
@@ -3086,7 +3595,12 @@ def runner_cli(num_images: int = 12):
     ``--loader colmap`` on the model it wrote and the same images, then with
     ``--override frontend.feature_type=orb`` and with ``--override
     densify.enabled=true`` on the Olsson folder: the DONE lines, the model
-    files and the parsed dense_point_cloud.ply. Last, ``--loader hilti`` (the rig window
+    files and the parsed dense_point_cloud.ply. Then the multi-GPU launches
+    at one process on the Olsson folder: ``--coordinator_address`` (NCCL)
+    with ``--override multi_view.distributed_ba=on``, and ``python -m
+    torch.distributed.run --nproc_per_node 1 -m gtsfm_tpu_torch.runner
+    --multihost`` (their relative rotations against the first run's are
+    logged). Then ``--loader hilti`` (the rig window
     regime) on a Hilti-layout folder of 4 rig poses' fisheye renders: the
     DONE line with every camera and OPENCV_FISHEYE cameras."""
     from gtsfm_tpu_torch.runner import __main__ as runner
@@ -3123,6 +3637,37 @@ def runner_cli(num_images: int = 12):
             if pts.shape[0] == 0 or not np.all(np.isfinite(pts)):
                 raise AssertionError(f"runner CLI densify: {pts.shape[0]} points in dense_point_cloud.ply")
             outs[name]["dense_points"] = int(pts.shape[0])
+    # the multi-GPU launches at one process: --coordinator_address with
+    # distributed BA in this process, then torchrun with --multihost
+    olsson_rel = _colmap_relative_rotations(os.path.join(root, "results_olsson", "ba_output"))
+    for name in ("coordinator", "torchrun"):
+        out = os.path.join(root, f"results_{name}")
+        argv = ["--dataset_root", data, "--output_root", out, "--no_cache", "--override", "save_plots=false"]
+        t0 = time.perf_counter()
+        if name == "coordinator":
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = runner.main(argv + ["--coordinator_address", f"127.0.0.1:{free_port()}", "--num_processes", "1",
+                                         "--process_id", "0", "--override", "multi_view.distributed_ba=on"])
+            stdout, stderr = buf.getvalue(), ""
+        else:
+            proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                                   "1", "-m", "gtsfm_tpu_torch.runner", "--multihost"] + argv, cwd=ROOT,
+                                  env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True, timeout=600)
+            rc, stdout, stderr = proc.returncode, proc.stdout, proc.stderr
+        seconds = time.perf_counter() - t0
+        done = [line for line in stdout.splitlines() if line.startswith("DONE:")]
+        files = _files(out)
+        missing = [f for f in SIFT_FILES if f not in files]
+        rel = None
+        if not missing:
+            got = _colmap_relative_rotations(os.path.join(out, "ba_output"))
+            rel = float(rot_errors_deg(got, olsson_rel).max()) if got.shape == olsson_rel.shape else None
+        log(f"runner_cli {name}: {num_images} images, rc {rc}, {seconds:.2f} s: {done}; {len(files)} files; relative "
+            f"rotations against the olsson run's max {rel} deg")
+        if rc != 0 or len(done) != 1 or not done[0].startswith(f"DONE: {num_images} cameras") or missing:
+            raise AssertionError(f"runner CLI {name}: rc {rc}, {done}, missing {missing}; {stderr[-4000:]}")
+        outs[name] = dict(seconds=seconds, done=done[0], files=len(files), rot_vs_olsson_max_deg=rel)
     n_rigs = 4
     t0 = time.perf_counter()
     hilti = write_hilti_folder(os.path.join(root, "hilti"), n_rigs, render=True)
@@ -3245,6 +3790,8 @@ def main() -> int:
     rig_check = phase("rig_cpu_check", rig_cpu_check, dev)
     survey = phase("render_survey", survey_loader, 128, 8)
     sift_run = phase("run_sift", run_sift, dev, survey)
+    dist_survey = phase("distributed_survey", distributed_survey, dev, survey, sift_run)
+    two_ranks = phase("distributed_two_ranks", distributed_two_ranks, dev, known.pop("_scene"), survey, sift_run)
     astro = phase("astrovision_mesh", astrovision_mesh, dev, survey)
     mesh_check = phase("mesh_cpu_check", mesh_cpu_check, dev, astro)
     astro.pop("_classification_args")
@@ -3278,6 +3825,7 @@ def main() -> int:
         # count is under launches_by_path
         "launches": deep["launches"],
         "launches_by_path": {"run": deep["launches"], "run_two_view": slice_out["launches"],
+                             "distributed_survey": dist_survey["attention_launches"],
                              "superglue_cpu_check": sg_check["launches"], "superglue_known": sg_known["launches"],
                              "lightglue_adaptive": {k: v["launches"] for k, v in adaptive.items()}},
         "max_abs_err": max([c["max_abs_err"] for c in checks.values()] + [e["max_abs_err"] for e in extra]),
@@ -3305,7 +3853,8 @@ def main() -> int:
                     **{f"run_{ft}": v for ft, v in front_ends.items()}, "deep_detectors": deep_dets,
                     "loftr": loftr_out, "densify_survey": dense, "densify_cpu_check": dense_check,
                     "patchmatchnet": pmn_out, "astrovision_mesh": astro, "mesh_cpu_check": mesh_check,
-                    "bal_survey": bal_out, "phase_seconds": phase_s}, default=float))
+                    "bal_survey": bal_out, "distributed_survey": dist_survey, "distributed_two_ranks": two_ranks,
+                    "phase_seconds": phase_s}, default=float))
     log(f"{smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

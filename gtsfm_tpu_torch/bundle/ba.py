@@ -35,6 +35,12 @@ with ``bucket_l`` set, measurements past the first ``bucket_l`` of a track
 (in (track, camera) order) take no part in the solve, and with
 ``schur_bf16`` the camera-point coupling is rounded to bfloat16 (accumulation
 stays float32). Camera banding is a TPU layout and raises.
+
+With a ``mesh`` (parallel.multihost.Mesh) the same LM loop and solvers run
+across the ranks of a process group: each rank builds the blocks of its
+measurement rows, and the normal equations and the cost are summed with
+all_reduce (parallel/distributed.py wraps them under the JAX package's
+names).
 """
 
 from __future__ import annotations
@@ -96,6 +102,7 @@ class BAResult(NamedTuple):
     initial_cost: torch.Tensor
     final_cost: torch.Tensor
     iterations: int
+    accepted: int = 0  # accepted LM steps
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -326,62 +333,120 @@ def _prior_cross_matvec(prior_blocks, x: torch.Tensor) -> torch.Tensor:
     return y.index_add_(0, eb, _tmv(cross, x[ea]))
 
 
-def _normal_equations(r, Jc, Jp, scene: SceneData, lam: float, prior_blocks=None):
+def _add_prior_normal_terms(Hcc: torch.Tensor, bc: torch.Tensor, prior_blocks):
+    """The between factors' diagonal blocks added to Hcc (N, D, D) and their
+    gradient terms to bc (N, D)."""
+    rp, Ja, Jb, ea, eb = prior_blocks
+    N = Hcc.shape[0]
+    Hcc = Hcc + _index_sum(_outer(Ja, Ja), ea, N) + _index_sum(_outer(Jb, Jb), eb, N)
+    bc = bc - _index_sum(_tmv(Ja, rp), ea, N) - _index_sum(_tmv(Jb, rp), eb, N)
+    return Hcc, bc
+
+
+def _prior_cross_dense(prior_blocks, N: int, D: int) -> torch.Tensor:
+    """The between factors' cross blocks as a dense (N D, N D) matrix: block
+    (a, b) is Ja^T Jb, block (b, a) its transpose."""
+    _, Ja, Jb, ea, eb = prior_blocks
+    cross = _outer(Ja, Jb)
+    P = torch.zeros(N, N, D, D, dtype=Ja.dtype, device=Ja.device)  # block (a, b) at P[a, b]
+    P.index_put_((ea, eb), cross, accumulate=True)
+    P.index_put_((eb, ea), cross.transpose(-1, -2), accumulate=True)
+    return P.transpose(1, 2).reshape(N * D, N * D)
+
+
+# Mesh helpers. ``mesh`` is a parallel.multihost.Mesh or None (one card):
+# the solvers below build the normal equations of this rank's measurement
+# rows and sum them over the ranks. Terms every rank could compute alike
+# (the priors') are added by the first rank only, so that the summed
+# system, and every value computed from it, is the same on every rank:
+# index_add_'s atomics on the card round differently from rank to rank.
+
+
+def _all_reduce(mesh, tensors) -> list[torch.Tensor]:
+    return list(tensors) if mesh is None else mesh.all_reduce(tensors)
+
+
+def _first_rank(mesh) -> bool:
+    return mesh is None or mesh.rank == 0
+
+
+def _normal_equations(r, Jc, Jp, scene: SceneData, lam: float, prior_blocks=None, mesh=None):
     """Damped Hcc (N, D, D) with the priors' diagonal blocks, bc, the
-    inverse of damped Hpp (T, 3, 3) and bp."""
+    inverse of damped Hpp (T, 3, 3) and bp; with a mesh, summed over the
+    ranks' measurement rows in one all_reduce."""
     N, T = scene.num_cameras_padded, scene.num_tracks_padded
     mc, mt = scene.meas_cam, scene.meas_track
     Hcc = _index_sum(_outer(Jc, Jc), mc, N)
     bc = -_index_sum(_tmv(Jc, r), mc, N)
-    if prior_blocks is not None:
-        rp, Ja, Jb, ea, eb = prior_blocks
-        Hcc = Hcc + _index_sum(_outer(Ja, Ja), ea, N) + _index_sum(_outer(Jb, Jb), eb, N)
-        bc = bc - _index_sum(_tmv(Ja, rp), ea, N) - _index_sum(_tmv(Jb, rp), eb, N)
+    if prior_blocks is not None and _first_rank(mesh):
+        Hcc, bc = _add_prior_normal_terms(Hcc, bc, prior_blocks)
     Hpp = _index_sum(_outer(Jp, Jp), mt, T)
     bp = -_index_sum(_tmv(Jp, r), mt, T)
+    Hcc, bc, Hpp, bp = _all_reduce(mesh, [Hcc, bc, Hpp, bp])
     return _damped(Hcc, lam), bc, _inv3x3(_damped(Hpp, lam)), bp
 
 
-def _schur_solve_dense(r, Jc, Jp, scene: SceneData, lam: float, cfg: BAConfig, bf16: bool, prior_blocks=None):
+def _schur_solve_dense(r, Jc, Jp, scene: SceneData, lam: float, cfg: BAConfig, bf16: bool, prior_blocks=None,
+                       mesh=None, tracks: tuple[int, int] | None = None):
     """Exact reduced-camera solve: the coupling G (T, 3, N*D) is scattered
     from the per-measurement blocks W_m = Jp^T Jc, S = blockdiag(Hcc) +
     prior cross blocks - G^T Hpp^-1 G is one (3T x ND)^T (3T x ND) product,
-    solved by Cholesky."""
-    N, T = scene.num_cameras_padded, scene.num_tracks_padded
-    D = Jc.shape[-1]
-    Hcc_d, bc, Hpp_inv, bp = _normal_equations(r, Jc, Jp, scene, lam, prior_blocks)
+    solved by Cholesky.
+
+    Track-sharded over a mesh: ``scene`` holds the measurement rows of this
+    rank's tracks [t0, t1) (``tracks``), so the rank eliminates its own
+    points; Hcc, S_red = G^T Hpp^-1 G and v are summed in the step's one
+    all_reduce, every rank solves the same reduced system, and one
+    all_gather returns dp."""
+    N, D = scene.num_cameras_padded, Jc.shape[-1]
+    t0, t1 = (0, scene.num_tracks_padded) if tracks is None else tracks
+    T = t1 - t0
+    mc, mt = scene.meas_cam, scene.meas_track if t0 == 0 else scene.meas_track - t0
+    priors_here = prior_blocks is not None and _first_rank(mesh)
+    Hcc = _index_sum(_outer(Jc, Jc), mc, N)
+    bc = -_index_sum(_tmv(Jc, r), mc, N)
+    if priors_here:
+        Hcc, bc = _add_prior_normal_terms(Hcc, bc, prior_blocks)
+    Hpp_inv = _inv3x3(_damped(_index_sum(_outer(Jp, Jp), mt, T), lam))
+    bp = -_index_sum(_tmv(Jp, r), mt, T)
     if bf16:
         W = _bf16(_outer(_bf16(Jp), _bf16(Jc)))
     else:
         W = _outer(Jp, Jc)  # (M, 3, D)
-    G = _index_sum(W, scene.meas_track * N + scene.meas_cam, T * N)
+    G = _index_sum(W, mt * N + mc, T * N)
     G = G.reshape(T, N, 3, D).transpose(1, 2).reshape(T, 3, N * D)
     Hi = _bf16(Hpp_inv) if bf16 else Hpp_inv
     C = Hi @ G
     if bf16:
         C = _bf16(C)
     S_red = G.reshape(3 * T, N * D).T @ C.reshape(3 * T, N * D)
-    idx = torch.arange(N, device=r.device)
-    S = torch.zeros(N, N, D, D, dtype=r.dtype, device=r.device)  # block (a, b) at S[a, b]
-    S[idx, idx] = Hcc_d
-    if prior_blocks is not None:
-        _, Ja, Jb, ea, eb = prior_blocks
-        cross = _outer(Ja, Jb)
-        S.index_put_((ea, eb), cross, accumulate=True)
-        S.index_put_((eb, ea), cross.transpose(-1, -2), accumulate=True)
-    S = S.transpose(1, 2).reshape(N * D, N * D) - S_red
     v = bc.reshape(-1) - torch.einsum("tin,ti->n", G, _mv(Hpp_inv, bp))
+    if priors_here:
+        S_red = S_red - _prior_cross_dense(prior_blocks, N, D)
+    Hcc, S_red, v = _all_reduce(mesh, [Hcc, S_red, v])  # the step's one all_reduce
+    dc = _solve_reduced_dense(_damped(Hcc, lam), S_red, v)
+    dp = _mv(Hpp_inv, bp - torch.einsum("tin,n->ti", G, dc.reshape(-1)))
+    return dc, dp if mesh is None else mesh.all_gather(dp)
+
+
+def _solve_reduced_dense(Hcc_d: torch.Tensor, S_red: torch.Tensor, v: torch.Tensor):
+    """dc (N, D) from S dc = v by Cholesky, S = blockdiag(Hcc_d) - S_red
+    (N D x N D; S_red carries the priors' cross blocks, negated)."""
+    N, D = Hcc_d.shape[0], Hcc_d.shape[-1]
+    idx = torch.arange(N, device=Hcc_d.device)
+    S = torch.zeros(N, N, D, D, dtype=Hcc_d.dtype, device=Hcc_d.device)  # block (a, b) at S[a, b]
+    S[idx, idx] = Hcc_d
+    S = S.transpose(1, 2).reshape(N * D, N * D) - S_red
     # Frozen cameras have zero rows/cols in S: identity keeps it well posed.
-    S = S + torch.diag((torch.diagonal(S) <= 1e-7).to(r.dtype))
+    S = S + torch.diag((torch.diagonal(S) <= 1e-7).to(S.dtype))
     # A failed factorization gives a NaN step, which LM rejects.
     Lf, info = torch.linalg.cholesky_ex(S)
     x = torch.cholesky_solve(v[:, None], Lf)[:, 0]
-    dc = torch.where(info == 0, x, torch.full_like(x, float("nan"))).reshape(N, D)
-    dp = _mv(Hpp_inv, bp - torch.einsum("tin,n->ti", G, dc.reshape(-1)))
-    return dc, dp
+    return torch.where(info == 0, x, torch.full_like(x, float("nan"))).reshape(N, D)
 
 
-def _schur_solve_pcg(r, Jc, Jp, scene: SceneData, lam: float, cfg: BAConfig, bf16: bool, prior_blocks=None):
+def _schur_solve_pcg(r, Jc, Jp, scene: SceneData, lam: float, cfg: BAConfig, bf16: bool, prior_blocks=None,
+                     mesh=None):
     """Matrix-free reduced-camera solve for large camera counts: PCG with a
     block-Jacobi preconditioner (from damped Hcc, the priors' diagonal
     blocks included), S x applied as two measurement sweeps plus the
@@ -389,25 +454,36 @@ def _schur_solve_pcg(r, Jc, Jp, scene: SceneData, lam: float, cfg: BAConfig, bf1
     measurements inside the matvec and the back-substitution are rounded to
     bfloat16 (the JAX package's bucketed PCG routing; its right-hand side
     stays float32). Stops at cfg.pcg_iterations or cfg.pcg_tol relative
-    residual (read on the host)."""
+    residual (read on the host).
+
+    Measurement-sharded over a mesh: ``scene`` holds this rank's
+    measurement rows; the normal equations are summed in one all_reduce and
+    each matvec all-reduces its two coupling products (Hpc x, and Hcp y with
+    the priors' cross term). On more than one rank the PCG runs exactly
+    cfg.pcg_iterations iterations with no host read, so that every rank
+    makes the same collectives whatever the values."""
     N, T = scene.num_cameras_padded, scene.num_tracks_padded
     mc, mt = scene.meas_cam, scene.meas_track
-    Hcc_d, bc, Hpp_inv, bp = _normal_equations(r, Jc, Jp, scene, lam, prior_blocks)
+    Hcc_d, bc, Hpp_inv, bp = _normal_equations(r, Jc, Jp, scene, lam, prior_blocks, mesh)
     rnd = _bf16 if bf16 else (lambda x: x)
+    first = _first_rank(mesh)
 
     def Hpc_x(x):  # sum_m Jp^T Jc x[cam] -> (T, 3)
-        return _index_sum(_tmv(Jp, _mv(Jc, rnd(x[mc]))), mt, T)
+        return _all_reduce(mesh, [_index_sum(_tmv(Jp, _mv(Jc, rnd(x[mc]))), mt, T)])[0]
 
-    def Hcp_y(y, rnd=rnd):  # sum_m Jc^T Jp y[track] -> (N, D)
+    def Hcp_local(y, rnd=rnd):  # this rank's sum_m Jc^T Jp y[track] -> (N, D)
         return _index_sum(rnd(_tmv(Jc, _mv(Jp, y[mt]))), mc, N)
 
     def S_matvec(x):
+        y = _mv(Hpp_inv, Hpc_x(x))
         direct = _mv(Hcc_d, x)
-        if prior_blocks is not None:
-            direct = direct + _prior_cross_matvec(prior_blocks, x)
-        return direct - Hcp_y(_mv(Hpp_inv, Hpc_x(x)))
+        if prior_blocks is None:
+            return direct - _all_reduce(mesh, [Hcp_local(y)])[0]
+        pc = _prior_cross_matvec(prior_blocks, x) if first else torch.zeros_like(x)
+        hcp, pc = _all_reduce(mesh, [Hcp_local(y), pc])
+        return (direct + pc) - hcp
 
-    v_rhs = bc - Hcp_y(_mv(Hpp_inv, bp), rnd=lambda x: x)
+    v_rhs = bc - _all_reduce(mesh, [Hcp_local(_mv(Hpp_inv, bp), rnd=lambda x: x)])[0]
     Minv = torch.linalg.inv(Hcc_d)
     x = torch.zeros_like(v_rhs)
     rr = v_rhs - S_matvec(x)
@@ -416,8 +492,9 @@ def _schur_solve_pcg(r, Jc, Jp, scene: SceneData, lam: float, cfg: BAConfig, bf1
     rz = torch.sum(rr * z)
     denom0 = torch.clamp(torch.sum(v_rhs * v_rhs), min=1e-20)
     zero = torch.zeros((), dtype=r.dtype, device=r.device)
+    host_stop = mesh is None or mesh.size == 1
     for _ in range(cfg.pcg_iterations):
-        if not bool(torch.sum(rr * rr) / denom0 > cfg.pcg_tol**2):
+        if host_stop and not bool(torch.sum(rr * rr) / denom0 > cfg.pcg_tol**2):
             break
         Sp = S_matvec(p)
         pSp = torch.sum(p * Sp)
@@ -509,40 +586,108 @@ def _cast(scene: SceneData, dtype: torch.dtype) -> SceneData:
     return scene.replace(**{k: getattr(scene, k).to(dtype) for k in ("wRi", "wti", "cal", "points", "meas_uv")})
 
 
+def _gauge_free(scene: SceneData) -> torch.Tensor:
+    """(N,) 1.0 for the live cameras BA moves: all but the first live one,
+    whose pose fixes the gauge."""
+    cam_fixed = torch.zeros(scene.num_cameras_padded, dtype=scene.camera_mask.dtype, device=scene.device)
+    cam_fixed[torch.argmax((scene.camera_mask > 0).to(torch.int32))] = 1.0
+    return (1.0 - cam_fixed) * scene.camera_mask
+
+
+def _priors_as(priors: RelativePosePriors, dtype: torch.dtype) -> RelativePosePriors:
+    """The priors with int64 edges and their values in ``dtype``."""
+    return priors._replace(edges_a=priors.edges_a.long(), edges_b=priors.edges_b.long(),
+                           aRb=priors.aRb.to(dtype), atb=priors.atb.to(dtype), weight=priors.weight.to(dtype))
+
+
+def _rows(scene: SceneData, lo: int, hi: int) -> SceneData:
+    """The scene with measurement rows [lo, hi) only."""
+    if lo == 0 and hi == scene.meas_cam.shape[0]:
+        return scene
+    return scene.replace(meas_cam=scene.meas_cam[lo:hi], meas_track=scene.meas_track[lo:hi],
+                         meas_uv=scene.meas_uv[lo:hi], meas_mask=scene.meas_mask[lo:hi])
+
+
+def _rank_rows(scene: SceneData, mesh, dense: bool):
+    """This rank's measurement rows (lo, hi) and, for the dense step, its
+    tracks (t0, t1) (None: all of them). Measurements sorted by track
+    (``_sorted_measurements``). The dense step gives each rank a contiguous
+    block of T / size tracks (T must divide) and the rows of those tracks;
+    the PCG step gives it a contiguous block of the rows."""
+    M, T = scene.meas_cam.shape[0], scene.num_tracks_padded
+    if mesh is None or mesh.size == 1:
+        return (0, M), None
+    if not dense:
+        return (mesh.rank * M // mesh.size, (mesh.rank + 1) * M // mesh.size), None
+    if T % mesh.size != 0:
+        raise ValueError(f"{T} tracks: pad the tracks to a multiple of the mesh size {mesh.size}")
+    t0, t1 = mesh.rank * (T // mesh.size), (mesh.rank + 1) * (T // mesh.size)
+    mt_eff = torch.where(scene.meas_mask > 0, scene.meas_track, torch.full_like(scene.meas_track, T))
+    lo, hi = torch.searchsorted(mt_eff, torch.tensor([t0, t1], device=mt_eff.device)).tolist()
+    return (lo, hi), (t0, t1)
+
+
+def _pad_tracks(scene: SceneData, multiple: int) -> SceneData:
+    """The scene with masked tracks appended up to a multiple of ``multiple``."""
+    pad = (-scene.num_tracks_padded) % multiple
+    if not pad:
+        return scene
+    return scene.replace(points=torch.cat([scene.points, scene.points.new_zeros(pad, 3)]),
+                         track_mask=torch.cat([scene.track_mask, scene.track_mask.new_zeros(pad)]))
+
+
 def lm_optimize(
     scene: SceneData,
     cfg: BAConfig = BAConfig(),
     cam_fixed: torch.Tensor | None = None,
     priors: RelativePosePriors | None = None,
     band_plan=None,
+    mesh=None,
+    dense: bool | None = None,
 ) -> BAResult:
     """Run LM to convergence (max iterations, early stop on relative cost
     decrease < _REL_TOL of the scene's dtype or damping at lambda_max).
     cam_fixed: optional (N,) {0,1} cameras to freeze; defaults to the first
     live camera (gauge anchor). priors: optional RelativePosePriors (rig
-    calibration, lidar odometry), cast to the scene's dtype."""
+    calibration, lidar odometry), cast to the scene's dtype. dense: the
+    reduced-camera solve, Cholesky or PCG (default: ``_use_dense_schur``).
+
+    mesh: a parallel.multihost.Mesh to split each step across its ranks,
+    every rank passing the same scene. The dense step splits the tracks
+    (their count must divide by the mesh size), the PCG step the
+    measurements; the coupling stays float32 (no bfloat16, as the JAX
+    package's distributed steps). Each rank builds the blocks of its rows
+    and the cost is summed over the ranks in an all_reduce, so every rank
+    takes the same accept, damping and stop decisions."""
     if cfg.band is not None or band_plan is not None:
         raise NotImplementedError("camera-banded BA: a TPU layout the port leaves out (ROADMAP North star)")
-    N = scene.num_cameras_padded
-    if cam_fixed is None:
-        cam_fixed = torch.zeros(N, dtype=scene.camera_mask.dtype, device=scene.device)
-        cam_fixed[torch.argmax((scene.camera_mask > 0).to(torch.int32))] = 1.0
-    cam_free = (1.0 - cam_fixed) * scene.camera_mask
+    cam_free = _gauge_free(scene) if cam_fixed is None else (1.0 - cam_fixed) * scene.camera_mask
 
     scene, active = _sorted_measurements(scene, cfg.bucket_l)
-    bf16 = cfg.bucket_l is not None and cfg.schur_bf16
-    solve = _schur_solve_dense if _use_dense_schur(scene) else _schur_solve_pcg
+    if dense is None:
+        dense = _use_dense_schur(scene)
+    bf16 = mesh is None and cfg.bucket_l is not None and cfg.schur_bf16
+    (lo, hi), tracks = _rank_rows(scene, mesh, dense)
+    active = active[lo:hi]
     D = CAM_DIM if cfg.optimize_calibration else POSE_DIM
     if priors is not None:
-        dt = scene.wti.dtype
-        priors = priors._replace(edges_a=priors.edges_a.long(), edges_b=priors.edges_b.long(),
-                                 aRb=priors.aRb.to(dt), atb=priors.atb.to(dt), weight=priors.weight.to(dt))
+        priors = _priors_as(priors, scene.wti.dtype)
+    first = _first_rank(mesh)
 
-    def cost_of(s, block_cost):
-        return block_cost if priors is None else block_cost + prior_cost(s, priors)
+    def evaluate(s):
+        """This rank's blocks and the cost over every rank (the priors' from
+        the first)."""
+        blocks, c = _build_blocks(_rows(s, lo, hi), cfg, cam_free, active)
+        if priors is not None and first:
+            c = c + prior_cost(s, priors)
+        return blocks, _all_reduce(mesh, [c])[0]
 
-    blocks, cost0 = _build_blocks(scene, cfg, cam_free, active)
-    cost0 = cost_of(scene, cost0)
+    def solve(s, blocks, lam, pb):
+        if dense:
+            return _schur_solve_dense(*blocks, _rows(s, lo, hi), lam, cfg, bf16, pb, mesh, tracks)
+        return _schur_solve_pcg(*blocks, _rows(s, lo, hi), lam, cfg, bf16, pb, mesh)
+
+    blocks, cost0 = evaluate(scene)
 
     f32 = np.float32
     # The host keeps the cost at the scene's precision (a float64 stage
@@ -551,21 +696,22 @@ def lm_optimize(
     rel_tol = _REL_TOL[scene.wRi.dtype]
     cost = fc(cost0.item())
     lam = f32(cfg.lambda_init)
-    it = 0
+    it = accepted = 0
     converged = False
     while it < cfg.max_iterations and not converged and lam < f32(cfg.lambda_max):
         pb = None if priors is None else _prior_blocks(scene, priors, cam_free, D)
-        dc, dp = solve(*blocks, scene, float(lam), cfg, bf16, pb)
+        dc, dp = solve(scene, blocks, float(lam), pb)
         cand = _update_scene(scene, dc, dp)
         if cfg.share_calibration:
             cand = _shared_calibration_step(cand, cfg)
-        new_blocks, new_cost_t = _build_blocks(cand, cfg, cam_free, active)
-        new_cost = fc(cost_of(cand, new_cost_t).item())  # the one host read per iteration
+        new_blocks, new_cost_t = evaluate(cand)
+        new_cost = fc(new_cost_t.item())  # the one host read per iteration
         accept = bool(new_cost < cost)
         if accept:
             scene, blocks = cand, new_blocks
             cost_next = new_cost
             lam = f32(lam * f32(cfg.lambda_down))
+            accepted += 1
         else:
             cost_next = cost
             lam = f32(lam * f32(cfg.lambda_up))
@@ -575,7 +721,8 @@ def lm_optimize(
         cost = cost_next
         it += 1
     dev = scene.device
-    return BAResult(scene=scene, initial_cost=cost0, final_cost=torch.tensor(cost, device=dev), iterations=it)
+    return BAResult(scene=scene, initial_cost=cost0, final_cost=torch.tensor(cost, device=dev), iterations=it,
+                    accepted=accepted)
 
 
 # PCG iteration cap of the float64 stages (the float32 stages keep
@@ -587,7 +734,7 @@ _FLOAT64_PCG_ITERATIONS = 500
 
 
 def lm_optimize_float64(scene: SceneData, cfg: BAConfig = BAConfig(),
-                        priors: RelativePosePriors | None = None) -> BAResult:
+                        priors: RelativePosePriors | None = None, mesh=None) -> BAResult:
     """lm_optimize in float64 without the bfloat16 coupling, so it stops at
     _REL_TOL[float64], with the PCG run to its tolerance
     (_FLOAT64_PCG_ITERATIONS); the scene comes back in float32. The final
@@ -595,7 +742,7 @@ def lm_optimize_float64(scene: SceneData, cfg: BAConfig = BAConfig(),
     run so: float32 LM stopping at 1e-6 leaves the poses at a point rounding
     picks, up to 0.01 deg from the optimum on a nadir survey."""
     cfg = cfg._replace(schur_bf16=False, pcg_iterations=max(cfg.pcg_iterations, _FLOAT64_PCG_ITERATIONS))
-    result = lm_optimize(_cast(scene, torch.float64), cfg, priors=priors)
+    result = lm_optimize(_cast(scene, torch.float64), cfg, priors=priors, mesh=mesh)
     return result._replace(scene=_cast(result.scene, torch.float32))
 
 
@@ -604,16 +751,29 @@ def run_ba_with_filtering(
     reproj_thresholds_px: tuple[float, ...] = (10.0, 5.0, 3.0),
     cfg: BAConfig = BAConfig(),
     priors: RelativePosePriors | None = None,
+    mesh=None,
 ) -> tuple[SceneData, list[dict]]:
     """Multi-stage BA: optimize, filter landmarks by threshold, repeat
     (reference bundle_adjustment.py:292-357). The bulk stages keep the
-    bfloat16 coupling; the final stage is lm_optimize_float64."""
+    bfloat16 coupling; the final stage is lm_optimize_float64.
+
+    With a mesh (parallel.multihost.Mesh) every stage is split across its
+    ranks (lm_optimize's ``mesh``): each stage starts from the first rank's
+    scene, priors and cfg (one broadcast; the stages before BA run on every
+    rank and the card's atomics may round them apart) with its tracks padded to
+    a multiple of the mesh size, and its stats add ``accepted`` (LM steps),
+    ``devices`` and the collectives this rank sent (``all_reduce_calls`` / ``_bytes``,
+    ``all_gather_calls`` / ``_bytes``)."""
     stats = []
     for k, thresh in enumerate(reproj_thresholds_px):
         t_stage = time.perf_counter()
         final = k == len(reproj_thresholds_px) - 1
+        if mesh is not None:
+            scene, priors, cfg = mesh.broadcast((scene, priors, cfg))
+            scene = _pad_tracks(scene, mesh.size)
+            calls0, bytes0 = dict(mesh.collective_calls), dict(mesh.collective_bytes)
         t_prep = time.perf_counter()
-        result = (lm_optimize_float64 if final else lm_optimize)(scene, cfg, priors=priors)
+        result = (lm_optimize_float64 if final else lm_optimize)(scene, cfg, priors=priors, mesh=mesh)
         iters = result.iterations
         if scene.device.type == "cuda":
             torch.cuda.synchronize(scene.device)
@@ -621,7 +781,7 @@ def run_ba_with_filtering(
         scene = result.scene.filter_landmarks(thresh)
         tracks, meas = scene.num_tracks(), scene.num_measurements()
         t_end = time.perf_counter()
-        stats.append(dict(
+        st = dict(
             threshold=float(thresh),
             initial_cost=float(result.initial_cost),
             final_cost=float(result.final_cost),
@@ -632,5 +792,11 @@ def run_ba_with_filtering(
             wall_lm_sec=t_opt - t_prep,
             wall_filter_sec=t_end - t_opt,
             lm_iters_per_sec=iters / (t_opt - t_prep) if t_opt > t_prep else 0.0,
-        ))
+        )
+        if mesh is not None:
+            st.update(accepted=result.accepted, devices=mesh.size)
+            for kind in ("all_reduce", "all_gather"):
+                st[f"{kind}_calls"] = mesh.collective_calls[kind] - calls0[kind]
+                st[f"{kind}_bytes"] = mesh.collective_bytes[kind] - bytes0[kind]
+        stats.append(st)
     return scene, stats

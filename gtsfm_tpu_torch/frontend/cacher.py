@@ -5,6 +5,8 @@ detector_descriptor_cacher.py:28): results keyed by a content hash of the
 image plus the detector configuration, persisted under ``cache/`` so repeated
 runs skip the front-end (the reference's CI relies on exactly this,
 benchmark.yml:41-48). npz instead of bz2-pickle: zero-copy numpy load.
+A cache that is not ``writable`` loads and never saves: in a process group
+only the first rank writes, the others read what is there.
 """
 
 from __future__ import annotations
@@ -16,10 +18,11 @@ import numpy as np
 
 
 class FeatureCache:
-    def __init__(self, cache_dir: str = "cache/features", enabled: bool = True):
+    def __init__(self, cache_dir: str = "cache/features", enabled: bool = True, writable: bool = True):
         self._dir = cache_dir
         self._enabled = enabled
-        if enabled:
+        self._writable = writable
+        if enabled and writable:
             os.makedirs(cache_dir, exist_ok=True)
 
     @staticmethod
@@ -43,7 +46,7 @@ class FeatureCache:
             return None
 
     def save(self, key: str, arrays: dict) -> None:
-        if not self._enabled:
+        if not (self._enabled and self._writable):
             return
         path = os.path.join(self._dir, f"{key}.npz")
         tmp = path + ".tmp"

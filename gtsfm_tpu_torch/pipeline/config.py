@@ -3,9 +3,7 @@
 Carried over field for field from gtsfm_tpu/pipeline/config.py, so a YAML
 preset or a dotted override means the same in both packages (the reference's
 two-tier Hydra-YAML + argparse config system, gtsfm/configs/*.yaml composed at
-runner/gtsfm_runner_base.py:164-200). Fields whose stage is not ported yet are
-kept so presets load unchanged; the stages that read them raise
-NotImplementedError until their slice lands (ROADMAP queue 1).
+runner/gtsfm_runner_base.py:164-200). Every field's stage is ported.
 """
 
 from __future__ import annotations
@@ -32,8 +30,8 @@ class FrontendConfig:
     # Images per detection batch (one forward pass over a shape-uniform
     # chunk). None = every image of a shape group in one batch.
     detect_batch: int | None = None
-    # Multi-device detection sharding (JAX package); the port runs on one
-    # card until its multi-GPU slice.
+    # Detection split across the ranks of a process group (None: whenever
+    # there is more than one rank).
     detect_sharded: bool | None = None
     # LightGlue adaptivity (upstream defaults 0.95 / 0.99; None disables and
     # runs the full static depth).
@@ -74,9 +72,10 @@ class MultiViewConfig:
     ba_reproj_thresholds_px: tuple = (10.0, 5.0, 3.0)  # reference :91
     ba_max_iterations: int = 20
     optimize_calibration: bool = False
-    # Global BA placement: "auto" shards over the device mesh whenever more
-    # than one device is visible (the reference always runs the back-end on
-    # the cluster, gtsfm_runner_base.py:379-396); "on"/"off" force it.
+    # Global BA placement: "auto" distributes it over the process group's
+    # ranks whenever there is more than one (the reference always runs the
+    # back-end on the cluster, gtsfm_runner_base.py:379-396); "on" runs the
+    # distributed BA on one rank too, "off" never.
     distributed_ba: str = "auto"
 
 

@@ -34,9 +34,15 @@ With densify.enabled, the exported scene is densified (plane sweep or
 PatchmatchNet, consistency fusion, voxel downsampling) into
 dense_point_cloud.ply.
 
-Runs on one device, ``"cuda"`` unless the caller asks otherwise.
-Distributed BA is a later slice (ROADMAP queue 1) and raises
-NotImplementedError.
+Runs on one device, ``"cuda"`` unless the caller asks otherwise. In a
+process group of several ranks (``parallel.multihost.initialize``, one
+process per GPU) every rank runs the same pipeline on the same inputs and
+three stages split their work across the ranks, as the JAX package's do
+across its devices: detection (``frontend.detect_sharded``), two-view
+RANSAC, and global BA (``multi_view.distributed_ba``: "on", or "auto" with
+more than one rank; it starts from the first rank's scene). Only the first
+rank writes outputs, caches and the trace, as only the JAX package's
+process 0 writes its outputs.
 """
 
 from __future__ import annotations
@@ -69,12 +75,11 @@ from gtsfm_tpu_torch.multiview import tracks as tracks_mod
 from gtsfm_tpu_torch.multiview import translation_averaging as ta
 from gtsfm_tpu_torch.multiview import viewgraph
 from gtsfm_tpu_torch.ops import matching, ransac
+from gtsfm_tpu_torch.parallel import distributed, multihost
 from gtsfm_tpu_torch.pipeline.config import PipelineConfig
 from gtsfm_tpu_torch.retriever import exhaustive_pairs, sequential_hilti_pairs, sequential_pairs
 
 logger = logging.getLogger("gtsfm_tpu_torch")
-
-_NOT_PORTED = "not ported to gtsfm_tpu_torch yet: ROADMAP queue 1, {}"
 
 
 @dataclasses.dataclass
@@ -239,7 +244,7 @@ class SceneOptimizer:
         pixel), SuperPoint a whole shape group."""
         cfg = self.config.frontend
         cache = FeatureCache(os.path.join(self.config.cache_dir, "features"),
-                             self.config.enable_cache)
+                             self.config.enable_cache, writable=multihost.rank() == 0)
         detect, peak_bytes_per_pixel = self._make_detector()
         tag = f"{cfg.feature_type}-{cfg.max_keypoints}-{self.config.max_resolution}"
         feats, cals, sizes, grays, misses = [], [], [], [], {}
@@ -258,7 +263,21 @@ class SceneOptimizer:
             feats.append(f)
             cals.append(cal)
             sizes.append((img.width, img.height))
-        # One forward pass per chunk of shape-uniform images.
+        # One forward pass per chunk of shape-uniform images. With several
+        # ranks each shape group (padded to a multiple of the ranks) is split
+        # across them and the features all-gathered.
+        world = multihost.world_size()
+        shard = world > 1 and (cfg.detect_sharded is None or cfg.detect_sharded)
+        mesh = distributed.make_mesh(device=self.device) if shard else None
+
+        def store(chunk, raw):
+            host = {k: getattr(raw, k).cpu().numpy() for k in ("uv", "response", "descriptor", "mask")}
+            host["scale"] = raw.scale.cpu().numpy() if hasattr(raw, "scale") else np.zeros_like(host["response"])
+            for j, i in enumerate(chunk):
+                f = sift.SiftFeatures(**{k: v[j] for k, v in host.items()})
+                cache.save(grays[i][1], f._asdict())
+                feats[i] = f
+
         B = cfg.detect_batch
         for shape, idxs in misses.items():
             if B is not None:
@@ -267,18 +286,19 @@ class SceneOptimizer:
                 step = max(1, sift.BATCH_BYTES // (peak_bytes_per_pixel * shape[0] * shape[1]))
             else:
                 step = len(idxs)
-            for s in range(0, len(idxs), step):
-                chunk = idxs[s:s + step]
+            if shard:
+                padded = idxs + [idxs[0]] * ((-len(idxs)) % world)
                 with record_function("features/detect"):
-                    raw = detect(np.stack([grays[i][0] for i in chunk]))
-                host = {k: getattr(raw, k).cpu().numpy() for k in ("uv", "response", "descriptor", "mask")}
-                host["scale"] = (raw.scale.cpu().numpy() if hasattr(raw, "scale")
-                                 else np.zeros_like(host["response"]))
-                for j, i in enumerate(chunk):
-                    f = sift.SiftFeatures(**{k: v[j] for k, v in host.items()})
-                    cache.save(grays[i][1], f._asdict())
-                    feats[i] = f
-            logger.info("features: %d images at shape %s done", len(idxs), shape)
+                    store(idxs, distributed.image_sharded_detect(
+                        mesh, detect, np.stack([grays[i][0] for i in padded]), batch=step))
+            else:
+                for s in range(0, len(idxs), step):
+                    chunk = idxs[s:s + step]
+                    with record_function("features/detect"):
+                        raw = detect(np.stack([grays[i][0] for i in chunk]))
+                    store(chunk, raw)
+            logger.info("features: %d images at shape %s done%s", len(idxs), shape,
+                        f" ({world} ranks)" if shard else "")
         return feats, np.stack(cals), sizes
 
     def _deep_matcher(self):
@@ -454,15 +474,26 @@ class SceneOptimizer:
         x1n = cameras.normalize_keypoints(cameras.K_from_bundler(cal_a)[:, None], x1)
         x2n = cameras.normalize_keypoints(cameras.K_from_bundler(cal_b)[:, None], x2)
         f_mean = (cal_a[:, 0] + cal_b[:, 0]) / 2.0
-        gen = torch.Generator(device=dev).manual_seed(self.config.seed)
+        world = multihost.world_size()
         with record_function("two_view/ransac"):
-            res = ransac.verify_essential_batched(
-                gen, x1n, x2n, cm,
-                threshold=tv.estimation_threshold_px / f_mean,
-                num_hypotheses=tv.num_hypotheses,
-                min_inliers=tv.min_inliers,
-                min_inlier_ratio=tv.min_inlier_ratio,
-            )
+            if world > 1 and len(pairs) >= world:
+                # The pairs (padded to a multiple of the ranks) split across
+                # the ranks; the results are all-gathered.
+                n_real = len(pairs)
+                rows = torch.arange(n_real + (-n_real) % world, device=dev).clamp(max=n_real - 1)
+                res = distributed.pair_sharded_verify(
+                    distributed.make_mesh(device=dev), self.config.seed, x1n[rows], x2n[rows], cm[rows],
+                    (tv.estimation_threshold_px / f_mean)[rows], num_hypotheses=tv.num_hypotheses,
+                    min_inliers=tv.min_inliers, min_inlier_ratio=tv.min_inlier_ratio)
+                res = _trim(res, n_real)
+            else:
+                res = ransac.verify_essential_batched(
+                    torch.Generator(device=dev).manual_seed(self.config.seed), x1n, x2n, cm,
+                    threshold=tv.estimation_threshold_px / f_mean,
+                    num_hypotheses=tv.num_hypotheses,
+                    min_inliers=tv.min_inliers,
+                    min_inlier_ratio=tv.min_inlier_ratio,
+                )
         self._span_peak("two_view/ransac")
         if tv.degeneracy_check:
             # GRIC H-vs-E selection on normalized coordinates (E acts as the
@@ -533,11 +564,6 @@ class SceneOptimizer:
             self.stage_peak_bytes[name] = max(self.stage_peak_bytes.get(name, 0), peak)
             self._peak_since_stage = max(self._peak_since_stage, peak)
             torch.cuda.reset_peak_memory_stats(self.device)
-
-    def _check_ported(self) -> None:
-        cfg = self.config
-        if cfg.multi_view.distributed_ba == "on":
-            raise NotImplementedError("distributed_ba='on' " + _NOT_PORTED.format("'multi-GPU'"))
 
     def _densify(self, loader, export_scene, save_outputs: bool) -> list[MetricsGroup]:
         """MVS on the exported (ortho-aligned) scene: the images rescaled to
@@ -685,7 +711,8 @@ class SceneOptimizer:
 
     def run(self, loader: LoaderBase, save_outputs: bool = True) -> ReconstructionResult:
         """Images to a COLMAP model and metrics. With ``profile_dir`` set, the
-        run is traced by torch.profiler into profile_dir/trace.json."""
+        run is traced by torch.profiler into profile_dir/trace.json
+        (trace_rank{r}.json on rank r > 0 of a process group)."""
         if not self.config.profile_dir:
             return self._run_impl(loader, save_outputs)
         from torch.profiler import ProfilerActivity, profile
@@ -696,13 +723,16 @@ class SceneOptimizer:
         with profile(activities=activities) as prof:
             result = self._run_impl(loader, save_outputs)
         os.makedirs(self.config.profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(self.config.profile_dir, "trace.json"))
+        r = multihost.rank()
+        prof.export_chrome_trace(os.path.join(self.config.profile_dir, f"trace_rank{r}.json" if r else "trace.json"))
         return result
 
     def _run_impl(self, loader: LoaderBase, save_outputs: bool = True) -> ReconstructionResult:
         cfg = self.config
-        self._check_ported()
         dev = self.device
+        # In a process group every rank runs the pipeline; only the first
+        # writes the outputs (the caches too: FeatureCache's writable).
+        save_outputs = save_outputs and multihost.rank() == 0
         self.stage_seconds, self.stage_peak_bytes, self._peak_since_stage = {}, {}, 0
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
@@ -737,7 +767,8 @@ class SceneOptimizer:
 
         # Two-view cache (reference TwoViewEstimatorCacher,
         # two_view_estimator_cacher.py:36): key from the first keypoints + config.
-        tv_cache = FeatureCache(os.path.join(cfg.cache_dir, "two_view"), cfg.enable_cache)
+        tv_cache = FeatureCache(os.path.join(cfg.cache_dir, "two_view"), cfg.enable_cache,
+                                writable=multihost.rank() == 0)
         key_payload = np.concatenate([np.asarray(feats[0].uv[:10]).ravel(), np.asarray(feats[-1].uv[:10]).ravel()])
         tv_key = tv_cache.key(
             key_payload,
@@ -961,8 +992,17 @@ class SceneOptimizer:
             logger.info("global BA: %d cams, %d tracks, %d meas (bucket_l %d), %d relative-pose priors",
                         sc.num_cameras(), sc.num_tracks(), sc.num_measurements(), bucket_l,
                         0 if ba_priors is None else len(ba_priors.weight))
-            final, ba_stats = ba.run_ba_with_filtering(sc, cfg.multi_view.ba_reproj_thresholds_px, ba_cfg,
-                                                       priors=ba_priors)
+            world = multihost.world_size()
+            if cfg.multi_view.distributed_ba == "on" or (cfg.multi_view.distributed_ba == "auto" and world > 1):
+                # The whole multi-stage BA over the ranks (one rank without a
+                # process group), with the same filtering.
+                final, ba_stats = distributed.run_ba_with_filtering_distributed(
+                    distributed.make_mesh(device=dev), sc, cfg.multi_view.ba_reproj_thresholds_px, ba_cfg,
+                    priors=ba_priors)
+                logger.info("global BA distributed over %d ranks", world)
+            else:
+                final, ba_stats = ba.run_ba_with_filtering(sc, cfg.multi_view.ba_reproj_thresholds_px, ba_cfg,
+                                                           priors=ba_priors)
             if fisheye_orig is not None:
                 with record_function("back_end/ba/fisheye_native"):
                     final, stats = self._fisheye_native_ba(final, trks, fisheye_orig, camera_cc_mask, ba_priors)
@@ -978,8 +1018,10 @@ class SceneOptimizer:
             for si, s in enumerate(ba_stats):
                 g.add(f"stage{si}_final_cost", s["final_cost"])
                 g.add(f"stage{si}_iterations", s["iterations"])
-                for key in ("wall_prep_sec", "wall_lm_sec", "wall_filter_sec", "lm_iters_per_sec"):
-                    g.add(f"stage{si}_{key}", s[key])
+                for key in ("wall_prep_sec", "wall_lm_sec", "wall_filter_sec", "lm_iters_per_sec", "devices",
+                            "all_reduce_calls", "all_reduce_bytes", "all_gather_bytes"):
+                    if key in s:
+                        g.add(f"stage{si}_{key}", s[key])
             g.add("duration_sec", t_ba - t_2view)
             metrics.append(g)
         t_s = self._stage("back_end/ba", t_s)

@@ -3,9 +3,13 @@
 Port of gtsfm_tpu/runner/__main__.py (the reference's per-dataset runner
 scripts + GtsfmRunnerBase, gtsfm/runner/gtsfm_runner_base.py:41-457): the
 same flags and defaults, presets resolved against gtsfm_tpu_torch/configs/.
-The reconstruction runs on one CUDA card with every loader of the JAX
-runner; the multi-host flags raise NotImplementedError naming their
-ROADMAP item.
+The reconstruction runs on the card with every loader of the JAX runner.
+On several cards, one process per card joined by torch.distributed:
+
+    torchrun --nproc_per_node N -m gtsfm_tpu_torch.runner --multihost --dataset_root <dir>
+
+or, per process, ``--coordinator_address host:port --num_processes N
+--process_id r`` (parallel/multihost.py).
 """
 
 from __future__ import annotations
@@ -14,8 +18,6 @@ import argparse
 import logging
 import os
 import sys
-
-_NOT_PORTED = "not ported to gtsfm_tpu_torch yet: ROADMAP queue 1, {}"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -39,15 +41,15 @@ def build_parser() -> argparse.ArgumentParser:
         "--override", action="append", default=[],
         help="config override a.b=c (repeatable)",
     )
-    # Multi-host launch (the reference's SSHCluster flags,
-    # gtsfm_runner_base.py:244-273): kept so command lines parse the same;
-    # the port runs on one card and raises for them.
+    # Multi-process launch, one process per GPU (the reference's SSHCluster
+    # flags, gtsfm_runner_base.py:244-273): torch.distributed wiring.
     p.add_argument(
         "--multihost", action="store_true",
-        help="multi-process launch (not in the port yet: raises)",
+        help="join the torch.distributed process group before any device use "
+        "(coordinator, world size and rank from torchrun's variables)",
     )
     p.add_argument("--coordinator_address", default=None,
-                   help="host:port of process 0 (not in the port yet: raises)")
+                   help="host:port of process 0 (launches without torchrun)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     return p
@@ -68,14 +70,28 @@ def resolve_config_path(name_or_path: str) -> str:
 
 def main(argv=None, device: str = "cuda") -> int:
     """Parse ``argv`` (default: the command line), reconstruct and print the
-    DONE line. ``device`` is for Python callers (tests pass "cpu"); the
-    command line always runs on the card."""
+    DONE line. ``device`` is for Python callers (tests pass "cpu", which
+    joins a gloo process group under the multi-process flags); the command
+    line always runs on the card (NCCL). A process group this call made is
+    destroyed when it returns."""
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     args = build_parser().parse_args(argv)
 
+    made_group = False
     if args.multihost or args.coordinator_address is not None:
-        raise NotImplementedError("--multihost / --coordinator_address " + _NOT_PORTED.format("'multi-GPU'"))
+        # Before any device use: it binds this process to its card.
+        from gtsfm_tpu_torch.parallel import multihost
 
+        made_group = multihost.initialize(args.coordinator_address, args.num_processes, args.process_id,
+                                          device=device)
+    try:
+        return _run(args, device)
+    finally:
+        if made_group:
+            multihost.shutdown()
+
+
+def _run(args, device: str) -> int:
     from gtsfm_tpu_torch.pipeline.config import PipelineConfig
     from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
 

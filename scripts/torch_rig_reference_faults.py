@@ -49,7 +49,7 @@ def main(n_rigs: int) -> int:
         captured["ta"] = (a, k)
         return run_rig_ta(*a, **k)
 
-    def record_ba(scene, cfg=ba.BAConfig(), cam_fixed=None, priors=None, band_plan=None):
+    def record_ba(scene, cfg=ba.BAConfig(), cam_fixed=None, priors=None, band_plan=None, mesh=None, dense=None):
         captured["ba"] = (scene, cfg, priors)
         raise _Stop
 

@@ -6,18 +6,21 @@ with the default configuration (SIFT at 4096 keypoints, mutual-NN, plots).
 The COLMAP model it writes is then read by both packages' ColmapLoader
 (equal names, poses, calibrations, sizes, images and pairs) and
 reconstructed again through ``--loader colmap``. ``--loader hilti`` runs on
-a folder of synthetic fisheye rig renders in the Hilti layout.
+a folder of synthetic fisheye rig renders in the Hilti layout. The
+multi-GPU options (distributed BA, ``--multihost``, ``--coordinator_address``)
+run at world size 1 over gloo.
 """
 
 import contextlib
 import io
 import os
+import socket
 
 import numpy as np
 import pytest
 import torch
 
-from chip_smoke import write_hilti_folder, write_olsson_folder
+from chip_smoke import rot_errors_deg, write_hilti_folder, write_olsson_folder
 from gtsfm_tpu.loader.colmap import ColmapLoader as JaxColmapLoader
 from gtsfm_tpu.runner import __main__ as jax_runner
 from gtsfm_tpu_torch.loader.colmap import ColmapLoader
@@ -134,12 +137,43 @@ def test_main_reconstructs_a_hilti_rig(tmp_path):
     assert len(lines) == 15 and all(ln[1:4] == ["OPENCV_FISHEYE", "480", "360"] for ln in lines)
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _relative_rotations(model: str) -> np.ndarray:
+    """R_0^T R_i of the model's cameras (free of the export's global frame)."""
+    loader = ColmapLoader(model)
+    R = np.stack([np.asarray(loader.get_camera_pose(i)[0], np.float64) for i in range(len(loader))])
+    return R[0].T @ R
+
+
 @pytest.mark.parametrize("argv", [["--override", "multi_view.distributed_ba=on"], ["--multihost"],
-                                  ["--coordinator_address", "localhost:1234"]])
-def test_unported_options_raise(argv, olsson_run):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        runner.main(["--dataset_root", olsson_run["data"], "--output_root", str(olsson_run["tmp"] / "unported"),
-                     "--no_cache"] + argv, device="cpu")
+                                  ["--coordinator_address", "localhost:{port}"]],
+                         ids=["distributed_ba", "multihost", "coordinator_address"])
+def test_multi_gpu_options_run(argv, olsson_run, monkeypatch):
+    """The multi-GPU options at world size 1 on the CPU (gloo): distributed
+    BA over a mesh of one rank, and the process group joined from torchrun's
+    variables or from --coordinator_address. Each writes the model, with the
+    single-card run's cameras (relative rotations within 1e-2 deg)."""
+    port = _free_port()
+    for k, v in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="1", RANK="0",
+                     LOCAL_RANK="0").items():
+        monkeypatch.setenv(k, v)
+    out = str(olsson_run["tmp"] / f"multi_gpu_{argv[0].strip('-')}")
+    try:
+        rc, done = _main(["--dataset_root", olsson_run["data"], "--output_root", out, "--no_cache"]
+                         + [a.format(port=port) for a in argv])
+        assert not torch.distributed.is_initialized()  # main() destroys the group it made
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    _check_model(rc, done, out)
+    got = _relative_rotations(os.path.join(out, "ba_output"))
+    want = _relative_rotations(os.path.join(olsson_run["out"], "ba_output"))
+    assert rot_errors_deg(got, want).max() < 1e-2
 
 
 def test_main_needs_a_card_by_default(tmp_path):

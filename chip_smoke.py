@@ -141,14 +141,19 @@ def attention_bound(BH: int, Kq: int, Kkv: int, Dh: int) -> dict:
                 flops=flops, bytes=nbytes)
 
 
+TIMED_ATTENTION_CASES = ("path", "dh32", "dh128")
+
+
 def check_attention_kernel(attention, dev, path_shape):
     """Kernel vs plain version on the card at the main path's shape, a
     ragged Kq != Kkv shape, fully masked rows, the other head dims at the
     path's length, Kq below one query tile, and logits up to about +-30;
     values sharing an offset of 8 under near-uniform attention; all at
     KERNEL_ATOL, with the largest difference from a float64 evaluation logged
-    beside the plain version's. At the path shape it times the kernel and SDPA in
-    turns (kernel, SDPA, kernel, SDPA) and the plain version once."""
+    beside the plain version's. At the path shape and the other head dims
+    (TIMED_ATTENTION_CASES) it times the kernel (mean of 20 calls) and SDPA
+    in turns (kernel, SDPA, kernel, SDPA) and the plain version once, beside
+    the bound."""
     gen = torch.Generator(device=dev).manual_seed(0)
     BH, K, Dh = path_shape
     # name, BH, Kq, Kkv, Dh, fraction of keys masked, scale of q and k,
@@ -183,7 +188,7 @@ def check_attention_kernel(attention, dev, path_shape):
             raise AssertionError(f"attention kernel disagrees with its plain version on {name}: {err}")
         out[name] = dict(BH=bh, Kq=kq, Kkv=kkv, Dh=dh, max_abs_err=err, max_abs_logit=logit_max,
                          kernel_vs_f64=f64_err[0], plain_vs_f64=f64_err[1])
-        if name == "path":
+        if name in TIMED_ATTENTION_CASES:
             add_mask = torch.where(mask > 0, 0.0, attention.NEG)[:, None, :].expand(bh, kq, kkv)
             sdpa = torch.nn.functional.scaled_dot_product_attention
             kernel_runs, library_runs = [], []
@@ -197,7 +202,7 @@ def check_attention_kernel(attention, dev, path_shape):
             bound = attention_bound(bh, kq, kkv, dh)
             out[name].update(ms=ms, kernel_runs_ms=kernel_runs, plain_ms=plain_ms, library_ms=library_ms,
                              library_runs_ms=library_runs, library_max_abs_err=lib_err, **bound)
-            log(f"attention path timing: kernel {kernel_runs} ms, SDPA (yardstick, unused by the port) "
+            log(f"attention {name} timing: kernel {kernel_runs} ms, SDPA (yardstick, unused by the port) "
                 f"{library_runs} ms (err {lib_err:.2e}), in turns; plain {plain_ms:.4f} ms; "
                 f"bound {bound['bound_ms']:.4f} ms by {bound['bound_by']} ({bound['bound_kind']}; "
                 f"f32 CUDA cores {bound['f32_bound_ms']:.4f} ms, single-pass TF32 "
@@ -3303,14 +3308,16 @@ def _two_rank_compute(mesh, z: dict, dev) -> dict:
     for name, cfg, pr in (("lm", ba.BAConfig(max_iterations=20, bucket_l=ba.auto_bucket_l(sc)), None),
                           ("lm_priors", ba.BAConfig(max_iterations=20, bucket_l=ba.auto_bucket_l(sc)), priors),
                           ("lm_pcg_priors", ba.BAConfig(max_iterations=20), priors)):
-        bytes0 = mesh.collective_bytes["all_reduce"]
+        calls0, bytes0 = mesh.collective_calls["all_reduce"], mesh.collective_bytes["all_reduce"]
         t0 = time.perf_counter()
         final, st = distributed.distributed_lm_optimize(mesh, sc, cfg, priors=pr)
         sync()
         out.update({f"{name}_seconds": time.perf_counter() - t0, f"{name}_cost": np.asarray(
             [st["initial_cost"], st["final_cost"]]), f"{name}_iterations": st["iterations"],
+            f"{name}_pcg_iterations": st["pcg_iterations"],
             f"{name}_wRi": final.wRi.cpu().numpy(), f"{name}_wti": final.wti.cpu().numpy(),
             f"{name}_points": final.points.cpu().numpy(),
+            f"{name}_all_reduce_calls": mesh.collective_calls["all_reduce"] - calls0,
             f"{name}_all_reduce_bytes": mesh.collective_bytes["all_reduce"] - bytes0})
     t0 = time.perf_counter()
     feats = distributed.image_sharded_detect(
@@ -3428,7 +3435,8 @@ def distributed_two_ranks(dev, scene, loader, sift_out, num_images: int = 8, tim
     caches on, both ranks into one output root. The ranks' outputs must be
     equal (their pipeline scenes bit for bit). Against one rank (this
     process, no process group): each LM's final cost within
-    TWO_RANK_COST_REL, the detection's keypoints within SIFT_CPU_UV_PX
+    TWO_RANK_COST_REL (its PCG iterations and all_reduce calls a LM
+    iteration logged), the detection's keypoints within SIFT_CPU_UV_PX
     (recall SIFT_CPU_RECALL) with descriptors within SIFT_CPU_DESC, and
     TWO_RANK_PAIRS_OK of the pairs verified and within 1 deg of the truth
     after two-view BA (as known_geometry holds the unsharded RANSAC;
@@ -3501,9 +3509,13 @@ def distributed_two_ranks(dev, scene, loader, sift_out, num_images: int = 8, tim
     lm = {}
     for n in TWO_RANK_LM_RUNS:
         (c0, c2), c1 = two[f"{n}_cost"], one[f"{n}_cost"][1]
+        its = [int(two[f"{n}_iterations"]), int(one[f"{n}_iterations"])]
+        pcg = [int(two[f"{n}_pcg_iterations"]), int(one[f"{n}_pcg_iterations"])]
         lm[n] = dict(cost=[float(c0), float(c2)], cost_one_rank=float(c1), cost_rel=float(abs(c2 - c1) / c1),
-                     iterations=[int(two[f"{n}_iterations"]), int(one[f"{n}_iterations"])],
-                     seconds=[float(two[f"{n}_seconds"]), float(one[f"{n}_seconds"])],
+                     iterations=its, seconds=[float(two[f"{n}_seconds"]), float(one[f"{n}_seconds"])],
+                     pcg_iterations=pcg, pcg_per_lm_iteration=[p / max(i, 1) for p, i in zip(pcg, its)],
+                     all_reduce_calls=int(two[f"{n}_all_reduce_calls"]),
+                     all_reduce_per_lm_iteration=int(two[f"{n}_all_reduce_calls"]) / max(its[0], 1),
                      all_reduce_bytes=int(two[f"{n}_all_reduce_bytes"]))
     recall, desc_err, identical = [], 0.0, True
     for b in range(num_images):
@@ -3544,7 +3556,9 @@ def distributed_two_ranks(dev, scene, loader, sift_out, num_images: int = 8, tim
         log(f"  {n}: cost {v['cost'][0]:.1f} -> {v['cost'][1]:.3f} in {v['iterations'][0]} iterations "
             f"({v['seconds'][0]:.2f} s; one rank {v['cost_one_rank']:.3f} in {v['iterations'][1]}, "
             f"{v['seconds'][1]:.2f} s), relative difference {v['cost_rel']:.2e} (limit {TWO_RANK_COST_REL}); "
-            f"all_reduce {v['all_reduce_bytes'] / 1e6:.2f} MB a rank")
+            f"PCG iterations a LM iteration {v['pcg_per_lm_iteration'][0]:.2f} (one rank "
+            f"{v['pcg_per_lm_iteration'][1]:.2f}); all_reduce {v['all_reduce_calls']} calls, "
+            f"{v['all_reduce_per_lm_iteration']:.2f} a LM iteration, {v['all_reduce_bytes'] / 1e6:.2f} MB a rank")
     log(f"  SIFT on {num_images} renders: recall {recall} within {SIFT_CPU_UV_PX} px, descriptors {desc_err:.2e}, "
         f"identical {identical} ({out['det_seconds'][0]:.2f} s, one rank {out['det_seconds'][1]:.2f} s); RANSAC "
         f"{len(err)} pairs ({out['pv_seconds'][0]:.2f} s, one rank {out['pv_seconds'][1]:.2f} s): "
@@ -3744,6 +3758,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA card",
               file=sys.stderr)
         return 1
+    t_main = time.perf_counter()
     sys.path.insert(0, ROOT)
     from gtsfm_tpu_torch.ops import attention, cuda_build
 
@@ -3854,7 +3869,8 @@ def main() -> int:
                     "loftr": loftr_out, "densify_survey": dense, "densify_cpu_check": dense_check,
                     "patchmatchnet": pmn_out, "astrovision_mesh": astro, "mesh_cpu_check": mesh_check,
                     "bal_survey": bal_out, "distributed_survey": dist_survey, "distributed_two_ranks": two_ranks,
-                    "phase_seconds": phase_s}, default=float))
+                    "phase_seconds": phase_s, "total_seconds": time.perf_counter() - t_main}, default=float))
+    log(f"chip_smoke: {time.perf_counter() - t_main:.2f} s in all, phases {sum(phase_s.values()):.2f} s")
     log(f"{smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

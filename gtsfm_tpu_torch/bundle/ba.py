@@ -103,6 +103,7 @@ class BAResult(NamedTuple):
     final_cost: torch.Tensor
     iterations: int
     accepted: int = 0  # accepted LM steps
+    pcg_iterations: int = 0  # PCG iterations over every LM step (0 for the dense solve)
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -454,14 +455,18 @@ def _schur_solve_pcg(r, Jc, Jp, scene: SceneData, lam: float, cfg: BAConfig, bf1
     measurements inside the matvec and the back-substitution are rounded to
     bfloat16 (the JAX package's bucketed PCG routing; its right-hand side
     stays float32). Stops at cfg.pcg_iterations or cfg.pcg_tol relative
-    residual (read on the host).
+    residual (read on the host every iteration). Returns (dc, dp, the PCG
+    iterations run).
 
     Measurement-sharded over a mesh: ``scene`` holds this rank's
     measurement rows; the normal equations are summed in one all_reduce and
     each matvec all-reduces its two coupling products (Hpc x, and Hcp y with
-    the priors' cross term). On more than one rank the PCG runs exactly
-    cfg.pcg_iterations iterations with no host read, so that every rank
-    makes the same collectives whatever the values."""
+    the priors' cross term). On more than one rank the stop is decided in
+    step: each rank's "continue" flag (relative residual above pcg_tol)
+    rides in the matvec's second all_reduce, and every rank stops once no
+    rank's flag is up. The ranks read the same sum, so they make the same
+    collectives whatever their values; the matvec that carries the last
+    flag is discarded (two all_reduces more than the iterations need)."""
     N, T = scene.num_cameras_padded, scene.num_tracks_padded
     mc, mt = scene.meas_cam, scene.meas_track
     Hcc_d, bc, Hpp_inv, bp = _normal_equations(r, Jc, Jp, scene, lam, prior_blocks, mesh)
@@ -474,29 +479,39 @@ def _schur_solve_pcg(r, Jc, Jp, scene: SceneData, lam: float, cfg: BAConfig, bf1
     def Hcp_local(y, rnd=rnd):  # this rank's sum_m Jc^T Jp y[track] -> (N, D)
         return _index_sum(rnd(_tmv(Jc, _mv(Jp, y[mt]))), mc, N)
 
-    def S_matvec(x):
+    def S_matvec(x, flag=None):
+        """(S x, ``flag`` summed over the ranks in the coupling's all_reduce,
+        or None without a flag)."""
         y = _mv(Hpp_inv, Hpc_x(x))
         direct = _mv(Hcc_d, x)
+        flags = [] if flag is None else [flag.to(x.dtype).reshape(1)]
         if prior_blocks is None:
-            return direct - _all_reduce(mesh, [Hcp_local(y)])[0]
-        pc = _prior_cross_matvec(prior_blocks, x) if first else torch.zeros_like(x)
-        hcp, pc = _all_reduce(mesh, [Hcp_local(y), pc])
-        return (direct + pc) - hcp
+            hcp, *flags = _all_reduce(mesh, [Hcp_local(y)] + flags)
+            Sx = direct - hcp
+        else:
+            pc = _prior_cross_matvec(prior_blocks, x) if first else torch.zeros_like(x)
+            hcp, pc, *flags = _all_reduce(mesh, [Hcp_local(y), pc] + flags)
+            Sx = (direct + pc) - hcp
+        return Sx, (flags[0] if flags else None)
 
     v_rhs = bc - _all_reduce(mesh, [Hcp_local(_mv(Hpp_inv, bp), rnd=lambda x: x)])[0]
     Minv = torch.linalg.inv(Hcc_d)
     x = torch.zeros_like(v_rhs)
-    rr = v_rhs - S_matvec(x)
+    rr = v_rhs - S_matvec(x)[0]
     z = _mv(Minv, rr)
     p = z
     rz = torch.sum(rr * z)
     denom0 = torch.clamp(torch.sum(v_rhs * v_rhs), min=1e-20)
     zero = torch.zeros((), dtype=r.dtype, device=r.device)
     host_stop = mesh is None or mesh.size == 1
-    for _ in range(cfg.pcg_iterations):
-        if host_stop and not bool(torch.sum(rr * rr) / denom0 > cfg.pcg_tol**2):
+    its = 0
+    while its < cfg.pcg_iterations:
+        go = torch.sum(rr * rr) / denom0 > cfg.pcg_tol**2
+        if host_stop and not bool(go):
             break
-        Sp = S_matvec(p)
+        Sp, ranks_going = S_matvec(p, None if host_stop else go)
+        if ranks_going is not None and not bool(ranks_going > 0):
+            break
         pSp = torch.sum(p * Sp)
         # Non-positive curvature: stall; LM then retries with more damping.
         alpha = torch.where(pSp > 1e-20, rz / pSp, zero)
@@ -506,8 +521,9 @@ def _schur_solve_pcg(r, Jc, Jp, scene: SceneData, lam: float, cfg: BAConfig, bf1
         rz_new = torch.sum(rr * z)
         p = z + torch.where(rz > 1e-20, rz_new / rz, zero) * p
         rz = rz_new
+        its += 1
     dp = _mv(Hpp_inv, bp - Hpc_x(x))
-    return x, dp
+    return x, dp, its
 
 
 def auto_bucket_l(scene: SceneData) -> int:
@@ -658,7 +674,8 @@ def lm_optimize(
     measurements; the coupling stays float32 (no bfloat16, as the JAX
     package's distributed steps). Each rank builds the blocks of its rows
     and the cost is summed over the ranks in an all_reduce, so every rank
-    takes the same accept, damping and stop decisions."""
+    takes the same accept, damping and stop decisions (and the PCG's stops,
+    which the ranks agree on in its matvecs' all_reduces)."""
     if cfg.band is not None or band_plan is not None:
         raise NotImplementedError("camera-banded BA: a TPU layout the port leaves out (ROADMAP North star)")
     cam_free = _gauge_free(scene) if cam_fixed is None else (1.0 - cam_fixed) * scene.camera_mask
@@ -683,8 +700,9 @@ def lm_optimize(
         return blocks, _all_reduce(mesh, [c])[0]
 
     def solve(s, blocks, lam, pb):
+        """(dc, dp, PCG iterations)."""
         if dense:
-            return _schur_solve_dense(*blocks, _rows(s, lo, hi), lam, cfg, bf16, pb, mesh, tracks)
+            return *_schur_solve_dense(*blocks, _rows(s, lo, hi), lam, cfg, bf16, pb, mesh, tracks), 0
         return _schur_solve_pcg(*blocks, _rows(s, lo, hi), lam, cfg, bf16, pb, mesh)
 
     blocks, cost0 = evaluate(scene)
@@ -696,11 +714,12 @@ def lm_optimize(
     rel_tol = _REL_TOL[scene.wRi.dtype]
     cost = fc(cost0.item())
     lam = f32(cfg.lambda_init)
-    it = accepted = 0
+    it = accepted = pcg_its = 0
     converged = False
     while it < cfg.max_iterations and not converged and lam < f32(cfg.lambda_max):
         pb = None if priors is None else _prior_blocks(scene, priors, cam_free, D)
-        dc, dp = solve(scene, blocks, float(lam), pb)
+        dc, dp, its = solve(scene, blocks, float(lam), pb)
+        pcg_its += its
         cand = _update_scene(scene, dc, dp)
         if cfg.share_calibration:
             cand = _shared_calibration_step(cand, cfg)
@@ -722,12 +741,13 @@ def lm_optimize(
         it += 1
     dev = scene.device
     return BAResult(scene=scene, initial_cost=cost0, final_cost=torch.tensor(cost, device=dev), iterations=it,
-                    accepted=accepted)
+                    accepted=accepted, pcg_iterations=pcg_its)
 
 
 # PCG iteration cap of the float64 stages (the float32 stages keep
-# cfg.pcg_iterations). Their PCG runs to cfg.pcg_tol: on a rig's long chain
-# of cameras the slowest mode (the scale along the chain) needs about a
+# cfg.pcg_iterations). Their PCG runs to cfg.pcg_tol, on one card and on a
+# mesh of ranks alike (the ranks stop in step): on a rig's long chain of
+# cameras the slowest mode (the scale along the chain) needs about a
 # hundred block-Jacobi PCG iterations, and at 30 a 16-pose rig's BA ended
 # 6% off the metric scale.
 _FLOAT64_PCG_ITERATIONS = 500
@@ -762,6 +782,7 @@ def run_ba_with_filtering(
     scene, priors and cfg (one broadcast; the stages before BA run on every
     rank and the card's atomics may round them apart) with its tracks padded to
     a multiple of the mesh size, and its stats add ``accepted`` (LM steps),
+    ``pcg_iterations`` (over its LM steps),
     ``devices`` and the collectives this rank sent (``all_reduce_calls`` / ``_bytes``,
     ``all_gather_calls`` / ``_bytes``)."""
     stats = []
@@ -794,7 +815,7 @@ def run_ba_with_filtering(
             lm_iters_per_sec=iters / (t_opt - t_prep) if t_opt > t_prep else 0.0,
         )
         if mesh is not None:
-            st.update(accepted=result.accepted, devices=mesh.size)
+            st.update(accepted=result.accepted, pcg_iterations=result.pcg_iterations, devices=mesh.size)
             for kind in ("all_reduce", "all_gather"):
                 st[f"{kind}_calls"] = mesh.collective_calls[kind] - calls0[kind]
                 st[f"{kind}_bytes"] = mesh.collective_bytes[kind] - bytes0[kind]

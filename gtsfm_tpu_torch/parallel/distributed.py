@@ -184,7 +184,7 @@ def distributed_ba_gn_step(
     (lo, hi), _ = ba._rank_rows(scene, mesh, dense=False)
     rows = ba._rows(scene, lo, hi)
     blocks, _ = ba._build_blocks(rows, cfg, ba._gauge_free(scene), rows.meas_mask)
-    dc, dp = ba._schur_solve_pcg(*blocks, rows, lam, cfg, False, _priors_here(scene, priors, cfg), mesh)
+    dc, dp, _ = ba._schur_solve_pcg(*blocks, rows, lam, cfg, False, _priors_here(scene, priors, cfg), mesh)
     return ba._update_scene(scene, dc, dp)
 
 
@@ -232,7 +232,7 @@ def distributed_lm_optimize(
     dense = cfg.bucket_l is not None and ba._use_dense_schur(scene)
     res = ba.lm_optimize(scene, cfg, priors=priors, band_plan=band_plan, mesh=mesh, dense=dense)
     return res.scene, dict(initial_cost=float(res.initial_cost), final_cost=float(res.final_cost),
-                           iterations=res.iterations, accepted=res.accepted)
+                           iterations=res.iterations, accepted=res.accepted, pcg_iterations=res.pcg_iterations)
 
 
 def run_ba_with_filtering_distributed(

@@ -103,6 +103,18 @@ class Mesh:
             o += t.numel()
         return out
 
+    def any_rank(self, flags) -> torch.Tensor:
+        """Each host flag OR-ed over the ranks (a bool tensor on the CPU), in
+        one all_reduce of the count of ranks that raised it: "every rank"
+        is the negation of "any rank" of the negated flags. The ranks branch
+        on the result alike, so they go on to make the same collectives. A
+        mesh of one rank returns the flags and makes no call."""
+        flags = torch.as_tensor(flags, dtype=torch.bool).cpu()
+        if self.size == 1:
+            return flags
+        (count,) = self.all_reduce([flags.to(self.device, torch.int32)])
+        return count.cpu() > 0
+
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """The ranks' equal-shape tensors concatenated along axis 0, in rank
         order, on every rank."""

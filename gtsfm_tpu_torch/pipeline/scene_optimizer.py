@@ -247,7 +247,7 @@ class SceneOptimizer:
                              self.config.enable_cache, writable=multihost.rank() == 0)
         detect, peak_bytes_per_pixel = self._make_detector()
         tag = f"{cfg.feature_type}-{cfg.max_keypoints}-{self.config.max_resolution}"
-        feats, cals, sizes, grays, misses = [], [], [], [], {}
+        feats, cals, sizes, grays = [], [], [], []
         for i in range(len(loader)):
             img, cal = loader.get_image(i)
             gray = to_grayscale(img.value_array)
@@ -257,12 +257,17 @@ class SceneOptimizer:
             if hit is not None:
                 f = sift.SiftFeatures(uv=hit["uv"], scale=hit["scale"], response=hit["response"],
                                       descriptor=hit["descriptor"], mask=hit["mask"])
-            else:
-                misses.setdefault(gray.shape, []).append(i)
             grays.append((gray, key))
             feats.append(f)
             cals.append(cal)
             sizes.append((img.width, img.height))
+        # An image any rank missed is detected by every rank (a rank that
+        # hit it takes the detected features), so the ranks' caches, which
+        # may differ, never decide who joins the sharded detection.
+        misses = {}
+        for i, miss in enumerate(self._any_rank([f is None for f in feats])):
+            if miss:
+                misses.setdefault(grays[i][0].shape, []).append(i)
         # One forward pass per chunk of shape-uniform images. With several
         # ranks each shape group (padded to a multiple of the ranks) is split
         # across them and the features all-gathered.
@@ -688,6 +693,13 @@ class SceneOptimizer:
         except Exception as e:  # diagnostics must never kill the run
             logger.warning("plot saving failed: %s", e)
 
+    def _any_rank(self, flags) -> list[bool]:
+        """Each host flag OR-ed over the ranks of the process group
+        (``Mesh.any_rank``, one all_reduce; no collective on one rank):
+        every rank then takes the same branch, so all of them make the same
+        collectives."""
+        return distributed.make_mesh(device=self.device).any_rank(flags).tolist()
+
     def _empty_result(self, loader, cals, metrics, frontend_reports, save_outputs, reason: str, t0: float,
                       wRi: np.ndarray | None = None,
                       camera_mask: np.ndarray | None = None) -> ReconstructionResult:
@@ -778,6 +790,8 @@ class SceneOptimizer:
             f"{cfg.frontend.matcher_type}-{cfg.frontend.ratio_test}",
         )
         hit = tv_cache.load(tv_key)
+        if self._any_rank([hit is None])[0]:
+            hit = None  # a rank missed: every rank runs the sharded two-view stage
         if hit is not None:
             res = ransac.TwoViewResult(*(torch.as_tensor(hit[k], device=dev) for k in ransac.TwoViewResult._fields))
             match_idx = hit["match_idx"]
@@ -853,7 +867,7 @@ class SceneOptimizer:
                 # Rig and lidar priors join the averaging graph directly (they
                 # come from calibration and odometry, not from matches).
                 edges, i2Ri1, i2Ui1 = _with_prior_edges(prior_map, edges, i2Ri1, i2Ui1)
-            if len(edges) == 0:
+            if self._any_rank([len(edges) == 0])[0]:  # a rank that exits, all do
                 logger.warning("view graph empty after cycle filtering: emitting an empty result with metrics")
                 self._stage("back_end/viewgraph", t_s)
                 return self._empty_result(loader, cals, metrics, frontend_reports, save_outputs,
@@ -918,7 +932,7 @@ class SceneOptimizer:
             g.add("num_tracks", len(trks))
             g.add("track_lengths", np.asarray([len(t) for t in trks], np.float64))
             metrics.append(g)
-            if not trks:
+            if self._any_rank([not trks])[0]:  # a rank that exits, all do
                 logger.warning("no tracks formed: emitting an empty result with metrics")
                 self._stage("back_end/tracks", t_s)
                 return self._empty_result(loader, cals, metrics, frontend_reports, save_outputs, reason="no_tracks",

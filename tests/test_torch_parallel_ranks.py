@@ -44,6 +44,7 @@ LM_ITERATIONS = 25
 FILTER_THRESHOLDS = (10.0, 5.0, 3.0)
 DETECT_KEYPOINTS = 128
 PIPE_IMAGES = 6
+PCG64_ITERATIONS = 500  # the float64 stages' PCG cap (ba._FLOAT64_PCG_ITERATIONS)
 
 
 # ------------------------------------------------------------------ inputs
@@ -152,8 +153,14 @@ def detection_images(seed: int = 0, n: int = 4, h: int = 96, w: int = 128) -> np
 def compute(mesh, z: dict) -> dict:
     """Every distributed function on the mesh, over the input groups z
     holds (ba_: a scene; pr_: its priors; pv_: RANSAC pairs with draws;
-    tri_: triangulation; det_: images). Returns numpy outputs."""
+    tri_: triangulation; det_: images; agree_flags: one row of flags a
+    rank; pipe_: a survey folder for the runner, run twice on more than one
+    rank). Returns numpy outputs."""
     out = {}
+    if "agree_flags" in z:
+        calls0 = mesh.collective_calls["all_reduce"]
+        out.update(agree_any=mesh.any_rank(z["agree_flags"][mesh.rank]).numpy(),
+                   agree_calls=np.asarray(mesh.collective_calls["all_reduce"] - calls0))
     if "ba_wRi" in z:
         sc = scene_from(z, "ba_")
         L = ba.auto_bucket_l(sc)
@@ -176,6 +183,13 @@ def compute(mesh, z: dict) -> dict:
             out.update({f"{name}_wRi": final.wRi.numpy(), f"{name}_wti": final.wti.numpy(),
                         f"{name}_points": final.points.numpy(), f"{name}_cost": np.asarray(
                             [st["initial_cost"], st["final_cost"]]), f"{name}_iterations": st["iterations"]})
+        # the float64 PCG LM as lm_optimize_float64 runs it, on the PCG solve
+        calls0 = mesh.collective_calls["all_reduce"]
+        res = ba.lm_optimize(ba._cast(sc, torch.float64), ba.BAConfig(
+            max_iterations=LM_ITERATIONS, pcg_iterations=PCG64_ITERATIONS, schur_bf16=False), mesh=mesh, dense=False)
+        out.update(pcg64_cost=np.asarray([float(res.initial_cost), float(res.final_cost)]),
+                   pcg64_counts=np.asarray([res.iterations, res.pcg_iterations,
+                                            mesh.collective_calls["all_reduce"] - calls0]))
         final, stats = distributed.run_ba_with_filtering_distributed(
             mesh, sc, FILTER_THRESHOLDS, ba.BAConfig(max_iterations=LM_ITERATIONS, bucket_l=L))
         out.update(filter_wRi=final.wRi.numpy(), filter_stats=np.asarray(
@@ -191,7 +205,15 @@ def compute(mesh, z: dict) -> dict:
                                                     reproj_thresh_px=5.0)
         out.update({f"tri_{k}": v.numpy() for k, v in res._asdict().items()})
     if "pipe_data" in z:
-        out.update(run_pipeline(mesh, str(z["pipe_data"]), os.path.join(str(z["pipe_out"]), f"world{mesh.size}")))
+        root = os.path.join(str(z["pipe_out"]), f"world{mesh.size}")
+        out.update(run_pipeline(mesh, str(z["pipe_data"]), root))
+        if mesh.size > 1:
+            # Again on the same group, each rank with a cache directory of its
+            # own: the first rank's is the warm one of the first run, the
+            # others' are empty (hosts that share no cache_dir).
+            rerun = root + "_rerun"
+            cache = os.path.join(root, "cache") if mesh.rank == 0 else os.path.join(rerun, f"cache_rank{mesh.rank}")
+            out.update({f"rerun_{k}": v for k, v in run_pipeline(mesh, str(z["pipe_data"]), rerun, cache).items()})
     if "det_images" in z:
         kw = {k[len("det_kw_"):]: int(v) for k, v in z.items() if k.startswith("det_kw_")}
         detect = lambda g: sift.detect_and_describe(torch.as_tensor(g), **kw)  # noqa: E731
@@ -200,12 +222,13 @@ def compute(mesh, z: dict) -> dict:
     return out
 
 
-def run_pipeline(mesh, data: str, out: str) -> dict:
+def run_pipeline(mesh, data: str, out: str, cache: str | None = None) -> dict:
     """The runner with --multihost on an Olsson folder, in this rank's group
     (no group on one rank: the single-card run), at 1024 SIFT keypoints,
     with the feature and two-view caches on: every rank runs the whole
     pipeline, the sharded stages split across the ranks, into one output
-    root and one cache directory, which the first rank alone writes.
+    root and one cache directory (``cache``, default out/cache), which the
+    first rank alone writes.
     Returns this rank's own scene (its rotations), its BA stages' devices,
     all_reduce calls and LM iterations, its rotation errors against the
     ground truth, how many times it saved the reports, and the files in
@@ -219,8 +242,8 @@ def run_pipeline(mesh, data: str, out: str) -> dict:
     from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
     from gtsfm_tpu_torch.runner import __main__ as runner
 
-    argv = ["--dataset_root", data, "--output_root", out, "--cache_dir", os.path.join(out, "cache"), "--override",
-            "frontend.max_keypoints=1024", "--override", "save_plots=false"]
+    argv = ["--dataset_root", data, "--output_root", out, "--cache_dir", cache or os.path.join(out, "cache"),
+            "--override", "frontend.max_keypoints=1024", "--override", "save_plots=false"]
     results, saves = [], []
     run, save_reports = SceneOptimizer.run, SceneOptimizer._save_reports
     SceneOptimizer.run = lambda self, *a, **k: results.append(run(self, *a, **k)) or results[-1]
@@ -329,6 +352,7 @@ def runs(tmp_path_factory):
     sc, (wRi, wti) = arc_problem()
     x1, x2, _ = two_view_pairs()
     inputs = dict(scene_arrays("ba_", sc), **sequential_priors(wRi, wti), **triangulation_inputs(sc),
+                  agree_flags=np.asarray([[True, False, True], [False, False, True]]),
                   pv_x1=x1, pv_x2=x2, pv_mask=np.ones(x1.shape[:2], np.float32), pv_thr=np.float32(4e-3),
                   pv_hyp=np.int64(64), det_images=detection_images(), det_kw_max_keypoints=np.int64(DETECT_KEYPOINTS),
                   pipe_data=np.str_(data), pipe_out=np.str_(str(tmp / "pipeline")))
@@ -342,7 +366,7 @@ def test_ranks_agree(runs):
     r0, r1 = runs["ranks"]
     assert r0["mesh"].tolist() == [2, 0] and r1["mesh"].tolist() == [2, 1]
     for k in r0:
-        if k not in ("mesh", "pipe_saved_reports"):
+        if k not in ("mesh", "pipe_saved_reports", "rerun_pipe_saved_reports"):
             np.testing.assert_array_equal(r0[k], r1[k], err_msg=k)
 
 
@@ -448,6 +472,65 @@ def test_pipeline_on_two_ranks(runs):
     # the model on disk is the first rank's scene (up to the export's rigid alignment)
     assert rot_errors_deg(rel(got["pipe_model_R"]), rel(got["pipe_R"])).max() < 1e-3
     assert rot_errors_deg(rel(got["pipe_R"]), rel(want["pipe_R"])).max() < 0.1
+
+
+def test_pipeline_rerun_with_separate_caches(runs):
+    """A second run of the runner on the same group, each rank with a cache
+    directory of its own: the first rank's warm from the first run, the
+    second rank's empty (hosts that share no cache_dir). The ranks agree on
+    what any of them missed, so both detect every image and verify every
+    pair again and finish within GROUP_TIMEOUT_S (without the agreement the
+    first rank skips the sharded stages the second waits in) with equal
+    scenes (test_ranks_agree), the first run's cameras bit for bit, at
+    run_sift's bars; the first rank alone saves the reports."""
+    r0, r1 = runs["ranks"]
+    np.testing.assert_array_equal(r1["rerun_pipe_R"], r0["rerun_pipe_R"])
+    np.testing.assert_array_equal(r0["rerun_pipe_R"], r0["pipe_R"])
+    assert [int(r["rerun_pipe_saved_reports"]) for r in (r0, r1)] == [1, 0]
+    files = [str(f) for f in r0["rerun_pipe_files"]]
+    assert "ba_output/cameras.txt" in files and not [f for f in files if f.startswith("cache")], files
+    assert r0["rerun_pipe_rot_err_deg"][0] <= 1.0 and r0["rerun_pipe_rot_err_deg"][1] <= 0.1
+    assert np.all(r0["rerun_pipe_ba_stages"][:, 0] == 2)
+
+
+def test_float64_pcg_stops_at_tolerance_on_two_ranks(runs):
+    """lm_optimize in float64 on the PCG solve with the float64 stages' cap
+    of 500 PCG iterations: on two ranks the PCG stops at pcg_tol as on one
+    rank (the same PCG iterations a LM iteration, within 2), the ranks
+    deciding each stop in a matvec's all_reduce. Per LM iteration: the
+    normal equations, the right-hand side, the first matvec (2), 2 a PCG
+    iteration, the matvec that carried the stop (2, unless the cap ended
+    the PCG), the back-substitution and the cost; plus the first cost. So
+    well under 2 x 500 all_reduces a LM iteration, and the final cost
+    within 1e-3 of one rank's. (At the optimum the last LM iteration's PCG
+    reaches the cap on one rank too: its right-hand side is left in the
+    weakly damped scale of the gauge.)"""
+    got, want = runs["ranks"][0], runs["one"]
+    (it, pcg, calls), (it1, pcg1, calls1) = got["pcg64_counts"], want["pcg64_counts"]
+    assert it > 0 and calls1 == 0
+    assert pcg < it * PCG64_ITERATIONS and abs(pcg / it - pcg1 / it1) <= 2, (it, pcg, it1, pcg1)
+    assert 1 + 6 * it + 2 * pcg <= calls <= 1 + 8 * it + 2 * pcg, (it, pcg, calls)
+    assert calls / it < 0.5 * 2 * PCG64_ITERATIONS, (it, pcg, calls)
+    c, c1 = got["pcg64_cost"], want["pcg64_cost"]
+    assert c[1] < 0.05 * c[0] and abs(c[1] - c1[1]) <= 1e-3 * c1[1], (c, c1)
+
+
+def test_any_rank_ors_the_ranks_flags(runs, tmp_path):
+    """Mesh.any_rank with rank-dependent flags (rank 0 [T, F, T], rank 1
+    [F, F, T]): both ranks get [T, F, T] from exactly one all_reduce. A
+    mesh of one rank returns its flags with no call: without a process
+    group, and in a process group of one rank."""
+    for r in runs["ranks"]:
+        assert r["agree_any"].tolist() == [True, False, True] and int(r["agree_calls"]) == 1
+    assert runs["one"]["agree_any"].tolist() == [True, False, True] and int(runs["one"]["agree_calls"]) == 0
+    multihost.initialize("file://" + str(tmp_path / "store"), 1, 0, device="cpu", timeout_s=GROUP_TIMEOUT_S)
+    try:
+        mesh = distributed.make_mesh()
+        assert mesh.group is not None and mesh.size == 1
+        assert mesh.any_rank([False, True]).tolist() == [False, True]
+        assert mesh.collective_calls["all_reduce"] == 0
+    finally:
+        multihost.shutdown()
 
 
 def test_layout_errors(runs):

@@ -1,0 +1,7 @@
+"""Mean seconds of the stage ``back_end/ba`` over the run's scenes."""
+
+from sfm_bench.stages import mean_stage_sum
+
+
+def read(ctx):
+    return mean_stage_sum(ctx, ["back_end/ba"])

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gtsfm_tpu_torch import resolve_device
+from gtsfm_tpu_torch.common import tracing
 from gtsfm_tpu_torch.frontend.deep.weights import flax_to_state_dict, lecun_normal_
 from gtsfm_tpu_torch.ops.attention import masked_attention
 from gtsfm_tpu_torch.ops.matching import mutual_max_matches
@@ -109,14 +110,15 @@ class SuperGlueNet(nn.Module):
     def descriptors(self, desc0, desc1, kpts0n, kpts1n, sc0, sc1, mask0, mask1):
         """The final projections (md0, md1) whose inner products are the
         scores."""
-        x0 = desc0 + self.kenc(kpts0n, sc0)
-        x1 = desc1 + self.kenc(kpts1n, sc1)
-        for i in range(NUM_GNN_LAYERS):
-            self_l, cross_l = getattr(self, f"self{i}"), getattr(self, f"cross{i}")
-            x0 = self_l(x0, x0, mask0)
-            x1 = self_l(x1, x1, mask1)
-            x0, x1 = cross_l(x0, x1, mask1), cross_l(x1, x0, mask0)
-        return self.final_proj(x0), self.final_proj(x1)
+        with tracing.span("two_view/match/gnn"):
+            x0 = desc0 + self.kenc(kpts0n, sc0)
+            x1 = desc1 + self.kenc(kpts1n, sc1)
+            for i in range(NUM_GNN_LAYERS):
+                self_l, cross_l = getattr(self, f"self{i}"), getattr(self, f"cross{i}")
+                x0 = self_l(x0, x0, mask0)
+                x1 = self_l(x1, x1, mask1)
+                x0, x1 = cross_l(x0, x1, mask1), cross_l(x1, x0, mask0)
+            return self.final_proj(x0), self.final_proj(x1)
 
     def forward(self, desc0, desc1, kpts0n, kpts1n, sc0, sc1, mask0, mask1):
         return scores_of(*self.descriptors(desc0, desc1, kpts0n, kpts1n, sc0, sc1, mask0, mask1))
@@ -131,30 +133,31 @@ def log_sinkhorn(scores, mask0, mask1, bin_score: float, iters: int = SINKHORN_I
 
     scores: (B, K0, K1); masked slots get -1e9 so all their mass goes to the
     dustbin. Returns the log assignment matrix (B, K0+1, K1+1)."""
-    B, K0, K1 = scores.shape
-    neg = torch.full_like(scores, NEG)
-    scores = torch.where(mask0[:, :, None] > 0, scores, neg)
-    scores = torch.where(mask1[:, None, :] > 0, scores, neg)
-    bins0 = scores.new_full((B, K0, 1), bin_score)
-    bins1 = scores.new_full((B, 1, K1), bin_score)
-    bin00 = scores.new_full((B, 1, 1), bin_score)
-    couplings = torch.cat([torch.cat([scores, bins0], -1), torch.cat([bins1, bin00], -1)], 1)
-    del scores, neg
+    with tracing.span("two_view/match/sinkhorn"):
+        B, K0, K1 = scores.shape
+        neg = torch.full_like(scores, NEG)
+        scores = torch.where(mask0[:, :, None] > 0, scores, neg)
+        scores = torch.where(mask1[:, None, :] > 0, scores, neg)
+        bins0 = scores.new_full((B, K0, 1), bin_score)
+        bins1 = scores.new_full((B, 1, K1), bin_score)
+        bin00 = scores.new_full((B, 1, 1), bin_score)
+        couplings = torch.cat([torch.cat([scores, bins0], -1), torch.cat([bins1, bin00], -1)], 1)
+        del scores, neg
 
-    n0, n1 = torch.sum(mask0, -1), torch.sum(mask1, -1)  # live counts
-    # Marginals: each live keypoint mass 1, the dustbin absorbs the difference.
-    zero_or_neg = lambda m: torch.where(m > 0, 0.0, NEG).to(couplings.dtype)  # noqa: E731
-    log_mu = torch.cat([zero_or_neg(mask0), torch.log(torch.clamp(n1, min=1.0))[:, None]], -1)
-    log_nu = torch.cat([zero_or_neg(mask1), torch.log(torch.clamp(n0, min=1.0))[:, None]], -1)
-    norm = -torch.log(torch.clamp(n0 + n1, min=1.0))[:, None]
-    log_mu = log_mu + norm
-    log_nu = log_nu + norm
-    u = torch.zeros_like(log_mu)
-    v = torch.zeros_like(log_nu)
-    for _ in range(iters):
-        u = log_mu - torch.logsumexp(couplings + v[:, None, :], dim=2)
-        v = log_nu - torch.logsumexp(couplings + u[:, :, None], dim=1)
-    return couplings + u[:, :, None] + v[:, None, :] - norm[..., None]
+        n0, n1 = torch.sum(mask0, -1), torch.sum(mask1, -1)  # live counts
+        # Marginals: each live keypoint mass 1, the dustbin absorbs the difference.
+        zero_or_neg = lambda m: torch.where(m > 0, 0.0, NEG).to(couplings.dtype)  # noqa: E731
+        log_mu = torch.cat([zero_or_neg(mask0), torch.log(torch.clamp(n1, min=1.0))[:, None]], -1)
+        log_nu = torch.cat([zero_or_neg(mask1), torch.log(torch.clamp(n0, min=1.0))[:, None]], -1)
+        norm = -torch.log(torch.clamp(n0 + n1, min=1.0))[:, None]
+        log_mu = log_mu + norm
+        log_nu = log_nu + norm
+        u = torch.zeros_like(log_mu)
+        v = torch.zeros_like(log_nu)
+        for _ in range(iters):
+            u = log_mu - torch.logsumexp(couplings + v[:, None, :], dim=2)
+            v = log_nu - torch.logsumexp(couplings + u[:, :, None], dim=1)
+        return couplings + u[:, :, None] + v[:, None, :] - norm[..., None]
 
 
 def extract_matches(log_assign, mask0, mask1, match_threshold: float = 0.2):

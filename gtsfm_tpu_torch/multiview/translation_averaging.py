@@ -23,9 +23,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
-
 from gtsfm_tpu_torch import resolve_device
+from gtsfm_tpu_torch.common import tracing
 
 MAX_PROJECTION_DIRECTIONS = 2000  # reference averaging_1dsfm.py:53
 OUTLIER_WEIGHT_THRESHOLD = 0.125  # reference averaging_1dsfm.py:51
@@ -206,55 +205,57 @@ def _recover_translations_gn(
         sigma_e = torch.full_like(u_meas[:, 0], NOISE_SIGMA)
     metric = is_metric > 0
     w_sigma = (NOISE_SIGMA / sigma_e) ** 2
-    t = t0
-    for it in range(iters):
-        d_vec = t[edges_b] - t[edges_a]
-        s = torch.clamp(torch.sum(d_vec * u_meas, dim=-1), min=delta)
-        s = torch.where(metric, torch.ones_like(s), s)
-        if normalize_gauge:  # mean live-edge scale -> 1
-            s_mean = torch.sum(s * w_edge) / torch.clamp(torch.sum(w_edge), min=1e-9)
-            s = s / torch.clamp(s_mean, min=1e-9)
-            t = t / torch.clamp(s_mean, min=1e-9)
-        target = s[:, None] * u_meas
-        e = torch.linalg.norm((t[edges_b] - t[edges_a]) - target, dim=-1)
-        w_rob = torch.clamp(0.25 / torch.clamp(e, min=1e-9), max=1.0)
-        if it < iters // 3:  # first sweeps: plain least squares
-            w_rob = torch.ones_like(w_rob)
-        w = w_rob * w_edge * w_sigma
+    with tracing.span("back_end/translation_averaging/recovery/irls"):
+        t = t0
+        for it in range(iters):
+            d_vec = t[edges_b] - t[edges_a]
+            s = torch.clamp(torch.sum(d_vec * u_meas, dim=-1), min=delta)
+            s = torch.where(metric, torch.ones_like(s), s)
+            if normalize_gauge:  # mean live-edge scale -> 1
+                s_mean = torch.sum(s * w_edge) / torch.clamp(torch.sum(w_edge), min=1e-9)
+                s = s / torch.clamp(s_mean, min=1e-9)
+                t = t / torch.clamp(s_mean, min=1e-9)
+            target = s[:, None] * u_meas
+            e = torch.linalg.norm((t[edges_b] - t[edges_a]) - target, dim=-1)
+            w_rob = torch.clamp(0.25 / torch.clamp(e, min=1e-9), max=1.0)
+            if it < iters // 3:  # first sweeps: plain least squares
+                w_rob = torch.ones_like(w_rob)
+            w = w_rob * w_edge * w_sigma
 
-        def L_mv(x, w=w):
-            y = w[:, None] * (x[edges_b] - x[edges_a])
-            return _segment_sum(y, edges_b, n) - _segment_sum(y, edges_a, n) + 1e-6 * x
+            def L_mv(x, w=w):
+                y = w[:, None] * (x[edges_b] - x[edges_a])
+                return _segment_sum(y, edges_b, n) - _segment_sum(y, edges_a, n) + 1e-6 * x
 
-        rhs = _segment_sum(w[:, None] * target, edges_b, n) - _segment_sum(w[:, None] * target, edges_a, n)
-        deg = _segment_sum(w, edges_a, n) + _segment_sum(w, edges_b, n) + 1e-6
-        x = _pcg(L_mv, lambda r, deg=deg: r / deg[:, None], rhs, t)
-        t = x - torch.mean(x, dim=0, keepdim=True)
+            rhs = _segment_sum(w[:, None] * target, edges_b, n) - _segment_sum(w[:, None] * target, edges_a, n)
+            deg = _segment_sum(w, edges_a, n) + _segment_sum(w, edges_b, n) + 1e-6
+            x = _pcg(L_mv, lambda r, deg=deg: r / deg[:, None], rhs, t)
+            t = x - torch.mean(x, dim=0, keepdim=True)
 
-    for _ in range(gn_iters):
-        d_vec = t[edges_b] - t[edges_a]
-        dn = torch.clamp(torch.linalg.norm(d_vec, dim=-1, keepdim=True), min=1e-9)
-        d = d_vec / dn
-        sig = sigma_e[:, None]
-        r = torch.where(metric[:, None], (d_vec - u_meas) / sig, (d - u_meas) / sig)
-        e = torch.linalg.norm(r, dim=-1)
-        w_rob = torch.clamp(HUBER_K / torch.clamp(e, min=1e-9), max=1.0) * w_edge
-        P = torch.where(metric[:, None, None], eye3 / sig[..., None],
-                        (eye3 - d[:, :, None] * d[:, None, :]) / (dn[..., None] * sig[..., None]))
-        JtJ_e = torch.einsum("eki,ekj->eij", P, P) * w_rob[:, None, None]
-        Jtr_e = torch.einsum("eki,ek->ei", P, r) * w_rob[:, None]
-        Hd = _segment_sum(JtJ_e, edges_a, n) + _segment_sum(JtJ_e, edges_b, n)
-        damp = 1e-3 * Hd * eye3 + 1e-8 * eye3
-        g = _segment_sum(Jtr_e, edges_b, n) - _segment_sum(Jtr_e, edges_a, n)
+    with tracing.span("back_end/translation_averaging/recovery/gauss_newton"):
+        for _ in range(gn_iters):
+            d_vec = t[edges_b] - t[edges_a]
+            dn = torch.clamp(torch.linalg.norm(d_vec, dim=-1, keepdim=True), min=1e-9)
+            d = d_vec / dn
+            sig = sigma_e[:, None]
+            r = torch.where(metric[:, None], (d_vec - u_meas) / sig, (d - u_meas) / sig)
+            e = torch.linalg.norm(r, dim=-1)
+            w_rob = torch.clamp(HUBER_K / torch.clamp(e, min=1e-9), max=1.0) * w_edge
+            P = torch.where(metric[:, None, None], eye3 / sig[..., None],
+                            (eye3 - d[:, :, None] * d[:, None, :]) / (dn[..., None] * sig[..., None]))
+            JtJ_e = torch.einsum("eki,ekj->eij", P, P) * w_rob[:, None, None]
+            Jtr_e = torch.einsum("eki,ek->ei", P, r) * w_rob[:, None]
+            Hd = _segment_sum(JtJ_e, edges_a, n) + _segment_sum(JtJ_e, edges_b, n)
+            damp = 1e-3 * Hd * eye3 + 1e-8 * eye3
+            g = _segment_sum(Jtr_e, edges_b, n) - _segment_sum(Jtr_e, edges_a, n)
 
-        def H_mv(x, JtJ_e=JtJ_e, damp=damp):
-            y = torch.einsum("eij,ej->ei", JtJ_e, x[edges_b] - x[edges_a])
-            return (_segment_sum(y, edges_b, n) - _segment_sum(y, edges_a, n)
-                    + torch.einsum("nij,nj->ni", damp, x))
+            def H_mv(x, JtJ_e=JtJ_e, damp=damp):
+                y = torch.einsum("eij,ej->ei", JtJ_e, x[edges_b] - x[edges_a])
+                return (_segment_sum(y, edges_b, n) - _segment_sum(y, edges_a, n)
+                        + torch.einsum("nij,nj->ni", damp, x))
 
-        Minv = torch.linalg.inv(Hd + damp)
-        x = _pcg(H_mv, lambda r, Minv=Minv: torch.einsum("nij,nj->ni", Minv, r), -g, torch.zeros_like(g))
-        t = t + (x - torch.mean(x, dim=0, keepdim=True))
+            Minv = torch.linalg.inv(Hd + damp)
+            x = _pcg(H_mv, lambda r, Minv=Minv: torch.einsum("nij,nj->ni", Minv, r), -g, torch.zeros_like(g))
+            t = t + (x - torch.mean(x, dim=0, keepdim=True))
     return t
 
 
@@ -310,85 +311,86 @@ def run_translation_averaging(
     wRi = np.asarray(wRi)
     # Lift: w_i2Ui1 = wRi2 @ i2Ui1 (direction from camera i2 toward camera i1).
     w_dirs = np.einsum("eij,ej->ei", wRi[edges[:, 1]], np.asarray(i2Ui1))
-    with record_function("back_end/translation_averaging/mfas"):
+    with tracing.span("back_end/translation_averaging/mfas"):
         outlier_w = mfas_outlier_weights(edges, w_dirs, n, num_projections, seed,
                                          sampling_method=sampling_method, device=dev)
     inliers = outlier_w < OUTLIER_WEIGHT_THRESHOLD
 
-    # Init: spanning-tree walk over inlier edges with unit lengths.
-    rng = np.random.default_rng(seed + 1)
-    t0 = rng.normal(size=(n, 3)).astype(np.float32) * 0.01
-    adj: dict[int, list[tuple[int, np.ndarray]]] = {}
-    for k in np.nonzero(inliers)[0]:
-        a, b = int(edges[k, 1]), int(edges[k, 0])  # direction a -> b
-        d = w_dirs[k].astype(np.float32)
-        adj.setdefault(a, []).append((b, d))
-        adj.setdefault(b, []).append((a, -d))
-    has_priors = prior_edges is not None and len(prior_edges) > 0
-    if has_priors:
-        for q in range(len(prior_edges)):
-            i1, i2 = int(prior_edges[q, 0]), int(prior_edges[q, 1])
-            d = prior_disp[q].astype(np.float32)  # t_i1 - t_i2
-            adj.setdefault(i2, []).append((i1, d))
-            adj.setdefault(i1, []).append((i2, -d))
-    visited = set()
-    for root in adj:
-        if root in visited:
-            continue
-        stack = [root]
-        visited.add(root)
-        while stack:
-            cur = stack.pop()
-            for nb, d in adj.get(cur, []):
-                if nb not in visited:
-                    t0[nb] = t0[cur] + d
-                    visited.add(nb)
-                    stack.append(nb)
+    with tracing.span("back_end/translation_averaging/init"):
+        # Init: spanning-tree walk over inlier edges with unit lengths.
+        rng = np.random.default_rng(seed + 1)
+        t0 = rng.normal(size=(n, 3)).astype(np.float32) * 0.01
+        adj: dict[int, list[tuple[int, np.ndarray]]] = {}
+        for k in np.nonzero(inliers)[0]:
+            a, b = int(edges[k, 1]), int(edges[k, 0])  # direction a -> b
+            d = w_dirs[k].astype(np.float32)
+            adj.setdefault(a, []).append((b, d))
+            adj.setdefault(b, []).append((a, -d))
+        has_priors = prior_edges is not None and len(prior_edges) > 0
+        if has_priors:
+            for q in range(len(prior_edges)):
+                i1, i2 = int(prior_edges[q, 0]), int(prior_edges[q, 1])
+                d = prior_disp[q].astype(np.float32)  # t_i1 - t_i2
+                adj.setdefault(i2, []).append((i1, d))
+                adj.setdefault(i1, []).append((i2, -d))
+        visited = set()
+        for root in adj:
+            if root in visited:
+                continue
+            stack = [root]
+            visited.add(root)
+            while stack:
+                cur = stack.pop()
+                for nb, d in adj.get(cur, []):
+                    if nb not in visited:
+                        t0[nb] = t0[cur] + d
+                        visited.add(nb)
+                        stack.append(nb)
 
-    # Optional camera->landmark measurements (selected tracks as extra nodes).
-    n_total = n
-    extra_a, extra_b, extra_u = [], [], []
-    if track_cam_idx is not None and track_rays is not None and track_mask is not None:
-        sel = select_tracks_for_averaging(track_cam_idx, track_mask, n)
-        for s_i, t_idx in enumerate(sel):
-            node = n + s_i
-            for l in np.nonzero(track_mask[t_idx] > 0)[0]:
-                cam = int(track_cam_idx[t_idx, l])
-                w_dir = wRi[cam] @ track_rays[t_idx, l]
-                nrm = np.linalg.norm(w_dir)
-                if nrm < 1e-9:
-                    continue
-                extra_a.append(cam)
-                extra_b.append(node)
-                extra_u.append((w_dir / nrm).astype(np.float32))
-        n_total = n + len(sel)
-        if extra_a:
-            t0_2 = np.zeros((n_total, 3), np.float32)
-            t0_2[:n] = t0
-            for a, b, u_ in zip(extra_a, extra_b, extra_u):
-                if np.allclose(t0_2[b], 0):  # one unit along the first ray
-                    t0_2[b] = t0_2[a] + u_
-            t0 = t0_2
+        # Optional camera->landmark measurements (selected tracks as extra nodes).
+        n_total = n
+        extra_a, extra_b, extra_u = [], [], []
+        if track_cam_idx is not None and track_rays is not None and track_mask is not None:
+            sel = select_tracks_for_averaging(track_cam_idx, track_mask, n)
+            for s_i, t_idx in enumerate(sel):
+                node = n + s_i
+                for l in np.nonzero(track_mask[t_idx] > 0)[0]:
+                    cam = int(track_cam_idx[t_idx, l])
+                    w_dir = wRi[cam] @ track_rays[t_idx, l]
+                    nrm = np.linalg.norm(w_dir)
+                    if nrm < 1e-9:
+                        continue
+                    extra_a.append(cam)
+                    extra_b.append(node)
+                    extra_u.append((w_dir / nrm).astype(np.float32))
+            n_total = n + len(sel)
+            if extra_a:
+                t0_2 = np.zeros((n_total, 3), np.float32)
+                t0_2[:n] = t0
+                for a, b, u_ in zip(extra_a, extra_b, extra_u):
+                    if np.allclose(t0_2[b], 0):  # one unit along the first ray
+                        t0_2[b] = t0_2[a] + u_
+                t0 = t0_2
 
-    def tensor(x, dtype=torch.float32):
-        return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+        def tensor(x, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
 
-    # Edge direction from i2 (a) to i1 (b); prior rows last.
-    n_pri = len(prior_edges) if has_priors else 0
-    ea = tensor(np.concatenate([edges[:, 1], np.asarray(extra_a, np.int64)]
-                               + ([prior_edges[:, 1]] if has_priors else [])), torch.int64)
-    eb = tensor(np.concatenate([edges[:, 0], np.asarray(extra_b, np.int64)]
-                               + ([prior_edges[:, 0]] if has_priors else [])), torch.int64)
-    u = tensor(np.concatenate([w_dirs.astype(np.float32)] + ([np.stack(extra_u)] if extra_u else [])
-                              + ([prior_disp.astype(np.float32)] if has_priors else [])))
-    is_metric = np.zeros(ea.shape[0], np.float32)
-    sigma = np.full(ea.shape[0], NOISE_SIGMA, np.float32)
-    if has_priors:
-        is_metric[-n_pri:] = 1.0
-        sigma[-n_pri:] = np.asarray(prior_sigma, np.float32)
-    metric_kw = dict(is_metric=tensor(is_metric), sigma_e=tensor(sigma), normalize_gauge=not has_priors)
-    ones = np.ones(len(extra_a) + n_pri, np.float32)
-    with record_function("back_end/translation_averaging/recovery"):
+        # Edge direction from i2 (a) to i1 (b); prior rows last.
+        n_pri = len(prior_edges) if has_priors else 0
+        ea = tensor(np.concatenate([edges[:, 1], np.asarray(extra_a, np.int64)]
+                                   + ([prior_edges[:, 1]] if has_priors else [])), torch.int64)
+        eb = tensor(np.concatenate([edges[:, 0], np.asarray(extra_b, np.int64)]
+                                   + ([prior_edges[:, 0]] if has_priors else [])), torch.int64)
+        u = tensor(np.concatenate([w_dirs.astype(np.float32)] + ([np.stack(extra_u)] if extra_u else [])
+                                  + ([prior_disp.astype(np.float32)] if has_priors else [])))
+        is_metric = np.zeros(ea.shape[0], np.float32)
+        sigma = np.full(ea.shape[0], NOISE_SIGMA, np.float32)
+        if has_priors:
+            is_metric[-n_pri:] = 1.0
+            sigma[-n_pri:] = np.asarray(prior_sigma, np.float32)
+        metric_kw = dict(is_metric=tensor(is_metric), sigma_e=tensor(sigma), normalize_gauge=not has_priors)
+        ones = np.ones(len(extra_a) + n_pri, np.float32)
+    with tracing.span("back_end/translation_averaging/recovery"):
         t = _recover_translations_gn(ea, eb, u, tensor(np.concatenate([inliers.astype(np.float32), ones])),
                                      tensor(t0), num_nodes=n_total, iters=150, **metric_kw)
 
@@ -401,7 +403,7 @@ def run_translation_averaging(
     valid = np.zeros(n, bool)
     valid[edges[inliers, 0]] = True
     valid[edges[inliers, 1]] = True
-    with record_function("back_end/translation_averaging/recovery"):
+    with tracing.span("back_end/translation_averaging/recovery"):
         t = _recover_translations_gn(ea, eb, u, tensor(np.concatenate([inliers.astype(np.float32), ones])),
                                      t, num_nodes=n_total, iters=20, gn_iters=15, **metric_kw)
     t = t.cpu().numpy()[:n]

@@ -48,17 +48,18 @@ process 0 writes its outputs.
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from gtsfm_tpu_torch import resolve_device
 from gtsfm_tpu_torch.bundle import ba
 from gtsfm_tpu_torch.common import scene as scene_mod
+from gtsfm_tpu_torch.common import tracing
 from gtsfm_tpu_torch.common.image import to_grayscale
 from gtsfm_tpu_torch.evaluation import pose_metrics
 from gtsfm_tpu_torch.evaluation.metrics import MetricsGroup, save_metrics_reports
@@ -88,6 +89,10 @@ class ReconstructionResult:
     metrics: list[MetricsGroup]
     wRi_pre_ba: np.ndarray | None = None
     wti_pre_ba: np.ndarray | None = None
+    # The run's spans: {"spans": SceneOptimizer.span_table}, and, after a
+    # profiled run, "counts" (tracing.device_counts of its trace) and
+    # "reduction_s" (the seconds that reduction took).
+    trace: dict | None = None
 
 
 class SceneOptimizer:
@@ -103,23 +108,27 @@ class SceneOptimizer:
         # span of the two-view stage (CUDA only).
         self.stage_peak_bytes: dict[str, int] = {}
         self._peak_since_stage = 0
+        # Per span name of the last run(): calls, host seconds and self
+        # seconds (tracing.SpanTable.rows).
+        self.span_table: dict[str, dict] = {}
 
     # ------------------------------------------------------------ stages
 
     def generate_pairs(self, loader: LoaderBase) -> list[tuple[int, int]]:
         cfg = self.config.retriever
         n = len(loader)
-        if cfg.regime == "exhaustive":
-            pairs = exhaustive_pairs(n)
-        elif cfg.regime in ("retrieval", "sequential_with_retrieval"):
-            pairs = self._retrieval_pairs(loader)
-        elif cfg.regime == "sequential_hilti":
-            # Rig sliding window over FOV-overlapping camera combinations;
-            # max_frame_lookahead counts rig stations here.
-            pairs = sequential_hilti_pairs(n, max_rig_lookahead=min(cfg.max_frame_lookahead, 3))
-        else:
-            pairs = sequential_pairs(n, cfg.max_frame_lookahead)
-        return [p for p in pairs if loader.is_valid_pair(*p)]
+        if cfg.regime in ("retrieval", "sequential_with_retrieval"):
+            return [p for p in self._retrieval_pairs(loader) if loader.is_valid_pair(*p)]
+        with tracing.span("retrieval/pairs"):
+            if cfg.regime == "exhaustive":
+                pairs = exhaustive_pairs(n)
+            elif cfg.regime == "sequential_hilti":
+                # Rig sliding window over FOV-overlapping camera combinations;
+                # max_frame_lookahead counts rig stations here.
+                pairs = sequential_hilti_pairs(n, max_rig_lookahead=min(cfg.max_frame_lookahead, 3))
+            else:
+                pairs = sequential_pairs(n, cfg.max_frame_lookahead)
+            return [p for p in pairs if loader.is_valid_pair(*p)]
 
     def _retrieval_pairs(self, loader: LoaderBase) -> list[tuple[int, int]]:
         """NetVLAD global-descriptor retrieval (reference ImagePairsGenerator
@@ -138,7 +147,7 @@ class SceneOptimizer:
                                  "(or allow_random_weights for tests)")
             model.init_random()
         descs = []
-        with record_function("retrieval/netvlad"):
+        with tracing.span("retrieval/netvlad"):
             for i in range(len(loader)):
                 img, _ = loader.get_image(i)
                 rgb = np.asarray(img.value_array, np.float32)
@@ -247,20 +256,19 @@ class SceneOptimizer:
                              self.config.enable_cache, writable=multihost.rank() == 0)
         detect, peak_bytes_per_pixel = self._make_detector()
         tag = f"{cfg.feature_type}-{cfg.max_keypoints}-{self.config.max_resolution}"
-        feats, cals, sizes, grays = [], [], [], []
-        for i in range(len(loader)):
-            img, cal = loader.get_image(i)
-            gray = to_grayscale(img.value_array)
-            key = cache.key(gray, tag)
-            hit = cache.load(key)
-            f = None
-            if hit is not None:
-                f = sift.SiftFeatures(uv=hit["uv"], scale=hit["scale"], response=hit["response"],
-                                      descriptor=hit["descriptor"], mask=hit["mask"])
-            grays.append((gray, key))
-            feats.append(f)
-            cals.append(cal)
-            sizes.append((img.width, img.height))
+        cals, sizes, grays = [], [], []
+        with tracing.span("features/load"):
+            for i in range(len(loader)):
+                img, cal = loader.get_image(i)
+                gray = to_grayscale(img.value_array)
+                grays.append((gray, cache.key(gray, tag)))
+                cals.append(cal)
+                sizes.append((img.width, img.height))
+        with tracing.span("features/cache"):
+            hits = [cache.load(key) for _, key in grays]
+        feats = [None if hit is None else sift.SiftFeatures(uv=hit["uv"], scale=hit["scale"], response=hit["response"],
+                                                            descriptor=hit["descriptor"], mask=hit["mask"])
+                 for hit in hits]
         # An image any rank missed is detected by every rank (a rank that
         # hit it takes the detected features), so the ranks' caches, which
         # may differ, never decide who joins the sharded detection.
@@ -276,12 +284,14 @@ class SceneOptimizer:
         mesh = distributed.make_mesh(device=self.device) if shard else None
 
         def store(chunk, raw):
-            host = {k: getattr(raw, k).cpu().numpy() for k in ("uv", "response", "descriptor", "mask")}
-            host["scale"] = raw.scale.cpu().numpy() if hasattr(raw, "scale") else np.zeros_like(host["response"])
-            for j, i in enumerate(chunk):
-                f = sift.SiftFeatures(**{k: v[j] for k, v in host.items()})
-                cache.save(grays[i][1], f._asdict())
-                feats[i] = f
+            with tracing.span("features/store"):
+                host = {k: getattr(raw, k).cpu().numpy() for k in ("uv", "response", "descriptor", "mask")}
+                host["scale"] = raw.scale.cpu().numpy() if hasattr(raw, "scale") else np.zeros_like(host["response"])
+                for j, i in enumerate(chunk):
+                    feats[i] = sift.SiftFeatures(**{k: v[j] for k, v in host.items()})
+            with tracing.span("features/cache"):
+                for i in chunk:
+                    cache.save(grays[i][1], feats[i]._asdict())
 
         B = cfg.detect_batch
         for shape, idxs in misses.items():
@@ -293,13 +303,14 @@ class SceneOptimizer:
                 step = len(idxs)
             if shard:
                 padded = idxs + [idxs[0]] * ((-len(idxs)) % world)
-                with record_function("features/detect"):
-                    store(idxs, distributed.image_sharded_detect(
-                        mesh, detect, np.stack([grays[i][0] for i in padded]), batch=step))
+                with tracing.span("features/detect"):
+                    raw = distributed.image_sharded_detect(mesh, detect, np.stack([grays[i][0] for i in padded]),
+                                                           batch=step)
+                store(idxs, raw)
             else:
                 for s in range(0, len(idxs), step):
                     chunk = idxs[s:s + step]
-                    with record_function("features/detect"):
+                    with tracing.span("features/detect"):
                         raw = detect(np.stack([grays[i][0] for i in chunk]))
                     store(chunk, raw)
             logger.info("features: %d images at shape %s done%s", len(idxs), shape,
@@ -366,7 +377,7 @@ class SceneOptimizer:
             sizes.append((img.width, img.height))
 
         pair_kpts = {}
-        with record_function("features/loftr"):
+        with tracing.span("features/loftr"):
             for a, b in pairs:
                 out = model(grays[a], grays[b])
                 live = out.mask > 0
@@ -419,8 +430,9 @@ class SceneOptimizer:
         chunk = int(self.config.two_view.chunk_size)
         up = lambda arrs: torch.as_tensor(np.stack([np.asarray(a) for a in arrs]),  # noqa: E731
                                           dtype=torch.float32).to(self.device)
-        stacks = dict(desc=up([f.descriptor for f in feats]), mask=up([f.mask for f in feats]),
-                      uv=up([f.uv for f in feats]), response=up([f.response for f in feats]), cal=up(cals))
+        with tracing.span("two_view/upload"):
+            stacks = dict(desc=up([f.descriptor for f in feats]), mask=up([f.mask for f in feats]),
+                          uv=up([f.uv for f in feats]), response=up([f.response for f in feats]), cal=up(cals))
         if len(pairs) <= chunk:
             return self._run_two_view_chunk(pairs, stacks, return_stages, precomputed)
         results, idxs, stage_parts = [], [], {}
@@ -455,15 +467,15 @@ class SceneOptimizer:
         def stack(field, side):
             return stacks[field][pa if side == 0 else pb]
 
-        # Profiler spans (no cost unless a torch.profiler session is active):
-        # chip_smoke.py attributes device time to them.
+        # Spans (tracing.span): each records its host seconds into the run's
+        # table and, under torch.profiler, the device work launched inside it.
         if precomputed is not None:
             x1, x2, cm, idx = precomputed
         else:
             d1, d2 = stack("desc", 0), stack("desc", 1)
             m1, m2 = stack("mask", 0), stack("mask", 1)
             k1, k2 = stack("uv", 0), stack("uv", 1)
-            with record_function("two_view/match"):
+            with tracing.span("two_view/match"):
                 if fe.matcher_type == "mutual_nn":
                     # Binary descriptors (ORB, BRISK) match by Hamming distance
                     # (cv2 NORM_HAMMING), the others by L2.
@@ -480,7 +492,7 @@ class SceneOptimizer:
         x2n = cameras.normalize_keypoints(cameras.K_from_bundler(cal_b)[:, None], x2)
         f_mean = (cal_a[:, 0] + cal_b[:, 0]) / 2.0
         world = multihost.world_size()
-        with record_function("two_view/ransac"):
+        with tracing.span("two_view/ransac"):
             if world > 1 and len(pairs) >= world:
                 # The pairs (padded to a multiple of the ranks) split across
                 # the ranks; the results are all-gathered.
@@ -506,7 +518,7 @@ class SceneOptimizer:
             from gtsfm_tpu_torch.geometry import lie
             from gtsfm_tpu_torch.ops import verifiers
 
-            with record_function("two_view/gric"):
+            with tracing.span("two_view/gric"):
                 g = verifiers.gric_select_batched(
                     torch.Generator(device=dev).manual_seed(self.config.seed + 1), x1n, x2n, cm,
                     lie.hat(res.i2Ui1) @ res.i2Ri1,
@@ -519,7 +531,7 @@ class SceneOptimizer:
         if tv.ba_enabled:
             from gtsfm_tpu_torch.twoview import estimator as tv_est
 
-            with record_function("two_view/ba"):
+            with tracing.span("two_view/ba"):
                 refined = tv_est.two_view_ba_batched(
                     res.i2Ri1, res.i2Ui1, x1n, x2n, res.inlier_mask,
                     tv.ba_reproj_thresh_px / f_mean, iterations=tv.ba_iterations,
@@ -579,9 +591,9 @@ class SceneOptimizer:
         from gtsfm_tpu_torch.densify import mvs_utils, plane_sweep
 
         cfg = self.config
-        with record_function("densify/images"):
+        with tracing.span("densify/images"):
             mvs_scene, small_imgs = mvs_inputs(loader, export_scene, cfg.densify.max_resolution)
-        with record_function("densify/depth_and_fusion"):
+        with tracing.span("densify/depth_and_fusion"):
             if cfg.densify.engine == "patchmatchnet":
                 from gtsfm_tpu_torch.densify import patchmatchnet as pmn
 
@@ -596,7 +608,7 @@ class SceneOptimizer:
         groups = [MetricsGroup("densify_metrics")]
         for k, v in dense.metrics.items():
             groups[0].add(k, v)
-        with record_function("densify/downsample"):
+        with tracing.span("densify/downsample"):
             dense_pts, dense_rgb = dense.points, dense.rgb
             if dense_pts.shape[0] >= 2:
                 voxel_size = mvs_utils.estimate_minimum_voxel_size(dense_pts)
@@ -722,9 +734,12 @@ class SceneOptimizer:
         return ReconstructionResult(scene=sc, metrics=metrics)
 
     def run(self, loader: LoaderBase, save_outputs: bool = True) -> ReconstructionResult:
-        """Images to a COLMAP model and metrics. With ``profile_dir`` set, the
-        run is traced by torch.profiler into profile_dir/trace.json
-        (trace_rank{r}.json on rank r > 0 of a process group)."""
+        """Images to a COLMAP model and metrics; ``result.trace`` and
+        ``span_table`` hold the run's spans. With ``profile_dir`` set, the
+        run is traced by torch.profiler into profile_dir/trace.json, which
+        is then reduced to the device work per span, written beside it as
+        trace_summary.json (trace_rank{r}.json and trace_summary_rank{r}.json
+        on rank r > 0 of a process group)."""
         if not self.config.profile_dir:
             return self._run_impl(loader, save_outputs)
         from torch.profiler import ProfilerActivity, profile
@@ -736,10 +751,29 @@ class SceneOptimizer:
             result = self._run_impl(loader, save_outputs)
         os.makedirs(self.config.profile_dir, exist_ok=True)
         r = multihost.rank()
-        prof.export_chrome_trace(os.path.join(self.config.profile_dir, f"trace_rank{r}.json" if r else "trace.json"))
+        path = os.path.join(self.config.profile_dir, f"trace_rank{r}.json" if r else "trace.json")
+        prof.export_chrome_trace(path)
+        t0 = time.perf_counter()
+        result.trace["counts"] = tracing.device_counts(tracing.load_events(path))
+        result.trace["reduction_s"] = time.perf_counter() - t0
+        with open(os.path.join(self.config.profile_dir,
+                               f"trace_summary_rank{r}.json" if r else "trace_summary.json"), "w") as fh:
+            json.dump(result.trace, fh, indent=1)
+        logger.info("trace reduced to counts per span in %.3f s", result.trace["reduction_s"])
         return result
 
     def _run_impl(self, loader: LoaderBase, save_outputs: bool = True) -> ReconstructionResult:
+        """One run, its spans recorded into ``span_table`` and
+        ``result.trace`` on every way out of the stages."""
+        with tracing.recording() as table:
+            try:
+                result = self._run_stages(loader, save_outputs)
+            finally:
+                self.span_table = table.rows
+        result.trace = {"spans": table.rows}
+        return result
+
+    def _run_stages(self, loader: LoaderBase, save_outputs: bool = True) -> ReconstructionResult:
         cfg = self.config
         dev = self.device
         # In a process group every rank runs the pipeline; only the first
@@ -781,15 +815,17 @@ class SceneOptimizer:
         # two_view_estimator_cacher.py:36): key from the first keypoints + config.
         tv_cache = FeatureCache(os.path.join(cfg.cache_dir, "two_view"), cfg.enable_cache,
                                 writable=multihost.rank() == 0)
-        key_payload = np.concatenate([np.asarray(feats[0].uv[:10]).ravel(), np.asarray(feats[-1].uv[:10]).ravel()])
-        tv_key = tv_cache.key(
-            key_payload,
-            f"{len(pairs)}-{cfg.two_view.num_hypotheses}-"
-            f"{cfg.two_view.estimation_threshold_px}-{cfg.two_view.ba_enabled}-{cfg.seed}-"
-            f"{cfg.frontend.feature_type}-{cfg.frontend.max_keypoints}-"
-            f"{cfg.frontend.matcher_type}-{cfg.frontend.ratio_test}",
-        )
-        hit = tv_cache.load(tv_key)
+        with tracing.span("two_view/cache"):
+            key_payload = np.concatenate([np.asarray(feats[0].uv[:10]).ravel(),
+                                          np.asarray(feats[-1].uv[:10]).ravel()])
+            tv_key = tv_cache.key(
+                key_payload,
+                f"{len(pairs)}-{cfg.two_view.num_hypotheses}-"
+                f"{cfg.two_view.estimation_threshold_px}-{cfg.two_view.ba_enabled}-{cfg.seed}-"
+                f"{cfg.frontend.feature_type}-{cfg.frontend.max_keypoints}-"
+                f"{cfg.frontend.matcher_type}-{cfg.frontend.ratio_test}",
+            )
+            hit = tv_cache.load(tv_key)
         if self._any_rank([hit is None])[0]:
             hit = None  # a rank missed: every rank runs the sharded two-view stage
         if hit is not None:
@@ -801,8 +837,9 @@ class SceneOptimizer:
             res, match_idx, tv_stages = self.run_two_view(feats, cals, pairs, precomputed=precomputed,
                                                           return_stages=True)
             match_idx = match_idx.cpu().numpy()
-            tv_cache.save(tv_key, dict(**{k: v.cpu().numpy() for k, v in res._asdict().items()},
-                                       match_idx=match_idx))
+            with tracing.span("two_view/cache"):
+                tv_cache.save(tv_key, dict(**{k: v.cpu().numpy() for k, v in res._asdict().items()},
+                                           match_idx=match_idx))
         t_2view = time.time()
         t_s = self._stage("run_two_view", t_s)
         res_np = ransac.TwoViewResult(*(t.cpu().numpy() for t in res))
@@ -812,45 +849,46 @@ class SceneOptimizer:
         g.add("inlier_ratios", res_np.inlier_ratio)
         g.add("num_inliers", res_np.num_inliers)
         g.add("duration_sec", t_2view - t_feat)
-        # Per-pair reports vs GT (reference TwoViewEstimationReport + the
-        # pose_angular_error_thresh < 5 deg success criterion).
-        wRi_gt, wti_gt, gt_valid = loader.get_all_poses()
-        num_matches = np.sum(match_idx >= 0, axis=-1)
-        if gt_valid.sum() >= 2:
-            reports = pose_metrics.two_view_reports_from_results(pairs, res_np, num_matches, wRi_gt, wti_gt,
-                                                                 gt_valid)
-            r_errs = np.asarray([r.R_error_deg for r in reports.values() if r.R_error_deg is not None])
-            u_errs = np.asarray([r.U_error_deg for r in reports.values() if r.U_error_deg is not None])
-            if r_errs.size:
-                g.add("rotation_angular_errors_deg", r_errs)
-                g.add("translation_angular_errors_deg", u_errs)
-                g.add("pose_success_rate_5deg", float((np.maximum(r_errs, u_errs) < 5.0).mean()))
-                for k, v in pose_metrics.pose_auc(r_errs).items():
-                    g.add(f"rotation_{k}", v)
-        metrics.append(g)
-        logger.info("two-view: %d/%d verified", int(ok.sum()), len(pairs))
+        with tracing.span("two_view/gt_reports"):
+            # Per-pair reports vs GT (reference TwoViewEstimationReport + the
+            # pose_angular_error_thresh < 5 deg success criterion).
+            wRi_gt, wti_gt, gt_valid = loader.get_all_poses()
+            num_matches = np.sum(match_idx >= 0, axis=-1)
+            if gt_valid.sum() >= 2:
+                reports = pose_metrics.two_view_reports_from_results(pairs, res_np, num_matches, wRi_gt, wti_gt,
+                                                                     gt_valid)
+                r_errs = np.asarray([r.R_error_deg for r in reports.values() if r.R_error_deg is not None])
+                u_errs = np.asarray([r.U_error_deg for r in reports.values() if r.U_error_deg is not None])
+                if r_errs.size:
+                    g.add("rotation_angular_errors_deg", r_errs)
+                    g.add("translation_angular_errors_deg", u_errs)
+                    g.add("pose_success_rate_5deg", float((np.maximum(r_errs, u_errs) < 5.0).mean()))
+                    for k, v in pose_metrics.pose_auc(r_errs).items():
+                        g.add(f"rotation_{k}", v)
+            metrics.append(g)
+            logger.info("two-view: %d/%d verified", int(ok.sum()), len(pairs))
 
-        # Per-pair front-end reports at every pipeline point (reference
-        # save_full_frontend_metrics: PRE_BA/POST_BA/POST_ISP + VIEWGRAPH).
-        frontend_reports = {
-            tag: pose_metrics.two_view_reports_from_results(pairs, st, num_matches, wRi_gt, wti_gt, gt_valid)
-            for tag, st in tv_stages.items()
-        }
-        if gt_valid.sum() >= 2 and "POST_ISP" in frontend_reports:
-            pose_metrics.add_gt_correspondence_metrics(
-                frontend_reports["POST_ISP"], pairs, [np.asarray(f.uv) for f in feats], match_idx,
-                res_np.inlier_mask, cals, wRi_gt, wti_gt, gt_valid,
-                dist_threshold_px=cfg.two_view.estimation_threshold_px, gt_mesh=loader.get_gt_scene_mesh(),
-                device=dev,
-            )
-            gt_ratios = [r.inlier_ratio_gt_model for r in frontend_reports["POST_ISP"].values()
-                         if r.inlier_ratio_gt_model is not None]
-            if gt_ratios:
-                metrics[-1].add("inlier_ratio_wrt_gt_model", np.asarray(gt_ratios, np.float64))
+            # Per-pair front-end reports at every pipeline point (reference
+            # save_full_frontend_metrics: PRE_BA/POST_BA/POST_ISP + VIEWGRAPH).
+            frontend_reports = {
+                tag: pose_metrics.two_view_reports_from_results(pairs, st, num_matches, wRi_gt, wti_gt, gt_valid)
+                for tag, st in tv_stages.items()
+            }
+            if gt_valid.sum() >= 2 and "POST_ISP" in frontend_reports:
+                pose_metrics.add_gt_correspondence_metrics(
+                    frontend_reports["POST_ISP"], pairs, [np.asarray(f.uv) for f in feats], match_idx,
+                    res_np.inlier_mask, cals, wRi_gt, wti_gt, gt_valid,
+                    dist_threshold_px=cfg.two_view.estimation_threshold_px, gt_mesh=loader.get_gt_scene_mesh(),
+                    device=dev,
+                )
+                gt_ratios = [r.inlier_ratio_gt_model for r in frontend_reports["POST_ISP"].values()
+                             if r.inlier_ratio_gt_model is not None]
+                if gt_ratios:
+                    metrics[-1].add("inlier_ratio_wrt_gt_model", np.asarray(gt_ratios, np.float64))
 
         edges = np.asarray([p for k, p in enumerate(pairs) if ok[k]], np.int64).reshape(-1, 2)
         i2Ri1, i2Ui1 = res_np.i2Ri1[ok], res_np.i2Ui1[ok]
-        with record_function("back_end/viewgraph"):
+        with tracing.span("back_end/viewgraph"):
             logger.info("view-graph cycle filtering: %d edges", len(edges))
             keep, vg_info = viewgraph.filter_cycle_consistent_edges(
                 edges, i2Ri1, cfg.multi_view.cycle_error_threshold_deg, device=dev)
@@ -885,24 +923,25 @@ class SceneOptimizer:
 
             # GT precision/recall of the kept edges (reference
             # view_graph_estimator_base.py:238-249).
-            post_isp = frontend_reports.get("POST_ISP", {})
-            if post_isp and gt_valid.sum() >= 2:
-                g = metrics[-1]
-                for name, attr in (("R", "R_error_deg"), ("U", "U_error_deg")):
-                    inl = [getattr(r, attr) for pr, r in post_isp.items() if pr in kept_edge_set]
-                    out = [getattr(r, attr) for pr, r in post_isp.items() if pr not in kept_edge_set]
-                    prec, rec = pose_metrics.get_precision_recall_from_errors(inl, out, 5.0)
-                    g.add(f"{name}_precision", prec)
-                    g.add(f"{name}_recall", rec)
-                    live_in = [e for e in inl if e is not None]
-                    live_out = [e for e in out if e is not None]
-                    if live_in:
-                        g.add(f"inlier_{name}_angular_errors_deg", np.asarray(live_in, np.float64))
-                    if live_out:
-                        g.add(f"outlier_{name}_angular_errors_deg", np.asarray(live_out, np.float64))
+            with tracing.span("back_end/viewgraph/gt_metrics"):
+                post_isp = frontend_reports.get("POST_ISP", {})
+                if post_isp and gt_valid.sum() >= 2:
+                    g = metrics[-1]
+                    for name, attr in (("R", "R_error_deg"), ("U", "U_error_deg")):
+                        inl = [getattr(r, attr) for pr, r in post_isp.items() if pr in kept_edge_set]
+                        out = [getattr(r, attr) for pr, r in post_isp.items() if pr not in kept_edge_set]
+                        prec, rec = pose_metrics.get_precision_recall_from_errors(inl, out, 5.0)
+                        g.add(f"{name}_precision", prec)
+                        g.add(f"{name}_recall", rec)
+                        live_in = [e for e in inl if e is not None]
+                        live_out = [e for e in out if e is not None]
+                        if live_in:
+                            g.add(f"inlier_{name}_angular_errors_deg", np.asarray(live_in, np.float64))
+                        if live_out:
+                            g.add(f"outlier_{name}_angular_errors_deg", np.asarray(live_out, np.float64))
         t_s = self._stage("back_end/viewgraph", t_s)
 
-        with record_function("back_end/rotation_averaging"):
+        with tracing.span("back_end/rotation_averaging"):
             logger.info("rotation averaging: %d cams, %d edges", n, len(edges))
             wRi_est, ra_info = ra.run_rotation_averaging(n, edges, i2Ri1, device=dev)
             g = MetricsGroup("rotation_averaging_metrics")
@@ -914,7 +953,7 @@ class SceneOptimizer:
 
         # Tracks from the verified inlier matches of kept edges, formed before
         # translation averaging (reference multi_view_optimizer.py:130).
-        with record_function("back_end/tracks"):
+        with tracing.span("back_end/tracks"):
             match_dict = {}
             pair_ok = [p for k, p in enumerate(pairs) if ok[k]]
             inlier_masks = res_np.inlier_mask[ok]
@@ -924,8 +963,9 @@ class SceneOptimizer:
                     continue
                 ia = np.nonzero(inlier_masks[kk] > 0)[0]
                 match_dict[(a, b)] = np.stack([ia, match_idx_ok[kk][ia]], -1)
-            trks = tracks_mod.tracks_from_matches(n, feats[0].uv.shape[0], match_dict,
-                                                  min_track_len=cfg.multi_view.min_track_len)
+            with tracing.span("back_end/tracks/union_find"):
+                trks = tracks_mod.tracks_from_matches(n, feats[0].uv.shape[0], match_dict,
+                                                      min_track_len=cfg.multi_view.min_track_len)
             kp = np.stack([np.asarray(f.uv) for f in feats])
             meas_tracks = tracks_mod.tracks_to_measurements(trks, kp)
             g = MetricsGroup("data_association_metrics")
@@ -938,21 +978,22 @@ class SceneOptimizer:
                 return self._empty_result(loader, cals, metrics, frontend_reports, save_outputs, reason="no_tracks",
                                           t0=t0, wRi=wRi_est, camera_mask=camera_cc_mask)
             # Padded per-track arrays + camera-frame unit rays for 1dSFM.
-            lengths = np.asarray([len(t) for t in trks])
-            T_n, max_len = len(trks), int(lengths.max())
-            slot_mask = np.arange(max_len)[None, :] < lengths[:, None]
-            tr_cam = np.zeros((T_n, max_len), np.int64)
-            tr_uv = np.zeros((T_n, max_len, 2), np.float32)
-            tr_cam[slot_mask] = [i for t in trks for i, _ in t]
-            tr_uv[slot_mask] = kp[tr_cam[slot_mask], [k for t in trks for _, k in t]]
-            tr_mask = slot_mask.astype(np.float32)
-            xn = cameras.bundler_calibrate(torch.as_tensor(cals[tr_cam], device=dev),
-                                           torch.as_tensor(tr_uv, device=dev)).cpu().numpy()
-            rays = np.concatenate([xn, np.ones((T_n, max_len, 1), np.float32)], -1)
-            rays /= np.linalg.norm(rays, axis=-1, keepdims=True)
+            with tracing.span("back_end/tracks/rays"):
+                lengths = np.asarray([len(t) for t in trks])
+                T_n, max_len = len(trks), int(lengths.max())
+                slot_mask = np.arange(max_len)[None, :] < lengths[:, None]
+                tr_cam = np.zeros((T_n, max_len), np.int64)
+                tr_uv = np.zeros((T_n, max_len, 2), np.float32)
+                tr_cam[slot_mask] = [i for t in trks for i, _ in t]
+                tr_uv[slot_mask] = kp[tr_cam[slot_mask], [k for t in trks for _, k in t]]
+                tr_mask = slot_mask.astype(np.float32)
+                xn = cameras.bundler_calibrate(torch.as_tensor(cals[tr_cam], device=dev),
+                                               torch.as_tensor(tr_uv, device=dev)).cpu().numpy()
+                rays = np.concatenate([xn, np.ones((T_n, max_len, 1), np.float32)], -1)
+                rays /= np.linalg.norm(rays, axis=-1, keepdims=True)
         t_s = self._stage("back_end/tracks", t_s)
 
-        with record_function("back_end/translation_averaging"):
+        with tracing.span("back_end/translation_averaging"):
             ta_kwargs = dict(num_projections=cfg.multi_view.num_mfas_projections, seed=cfg.seed,
                              sampling_method=cfg.multi_view.mfas_sampling_method, track_cam_idx=tr_cam,
                              track_rays=rays, track_mask=tr_mask, device=dev)
@@ -972,7 +1013,7 @@ class SceneOptimizer:
 
         # Triangulation with the averaged poses (RANSAC over measurement
         # pairs + exit codes, reference point3d_initializer semantics).
-        with record_function("back_end/triangulation"):
+        with tracing.span("back_end/triangulation"):
             sc = scene_mod.make_scene(wRi_est, wti_est, cals, meas_tracks, camera_mask=camera_cc_mask, device=dev)
             pad_rows = sc.num_tracks_padded - T_n
             logger.info("triangulating %d tracks (padded %d)", T_n, sc.num_tracks_padded)
@@ -993,7 +1034,7 @@ class SceneOptimizer:
             wRi_pre_ba, wti_pre_ba = sc.wRi.cpu().numpy(), sc.wti.cpu().numpy()
         t_s = self._stage("back_end/triangulation", t_s)
 
-        with record_function("back_end/ba"):
+        with tracing.span("back_end/ba"):
             bucket_l = ba.auto_bucket_l(sc)
             if bucket_l > 64:
                 # The JAX package caps its bucketed layout at 64 slots: the
@@ -1018,7 +1059,7 @@ class SceneOptimizer:
                 final, ba_stats = ba.run_ba_with_filtering(sc, cfg.multi_view.ba_reproj_thresholds_px, ba_cfg,
                                                            priors=ba_priors)
             if fisheye_orig is not None:
-                with record_function("back_end/ba/fisheye_native"):
+                with tracing.span("back_end/ba/fisheye_native"):
                     final, stats = self._fisheye_native_ba(final, trks, fisheye_orig, camera_cc_mask, ba_priors)
                 ba_stats.append(stats)
             t_ba = time.time()
@@ -1041,16 +1082,17 @@ class SceneOptimizer:
         t_s = self._stage("back_end/ba", t_s)
 
         # GT comparison if the loader has poses.
-        est_valid = (gt_valid > 0) & (final.camera_mask.cpu().numpy() > 0)
-        if est_valid.sum() >= 3:
-            (Rb, tb), _ = alignment.align_poses_sim3(final.wRi, final.wti, wRi_gt, wti_gt, valid=est_valid)
-            rot_errs = alignment.rotation_errors_deg(Rb, wRi_gt).cpu().numpy()[est_valid]
-            tr_errs = np.linalg.norm(tb.cpu().numpy() - wti_gt, axis=-1)[est_valid]
-            g = MetricsGroup("ba_pose_error_metrics")
-            g.add("rotation_angle_error_deg", rot_errs)
-            g.add("translation_error_distance", tr_errs)
-            metrics.append(g)
-            logger.info("vs GT: rot max %.3f deg, trans max %.4f", rot_errs.max(), tr_errs.max())
+        with tracing.span("back_end/gt_alignment"):
+            est_valid = (gt_valid > 0) & (final.camera_mask.cpu().numpy() > 0)
+            if est_valid.sum() >= 3:
+                (Rb, tb), _ = alignment.align_poses_sim3(final.wRi, final.wti, wRi_gt, wti_gt, valid=est_valid)
+                rot_errs = alignment.rotation_errors_deg(Rb, wRi_gt).cpu().numpy()[est_valid]
+                tr_errs = np.linalg.norm(tb.cpu().numpy() - wti_gt, axis=-1)[est_valid]
+                g = MetricsGroup("ba_pose_error_metrics")
+                g.add("rotation_angle_error_deg", rot_errs)
+                g.add("translation_error_distance", tr_errs)
+                metrics.append(g)
+                logger.info("vs GT: rot max %.3f deg, trans max %.4f", rot_errs.max(), tr_errs.max())
 
         g = MetricsGroup("total_summary_metrics")
         g.add("total_runtime_sec", time.time() - t0)
@@ -1059,7 +1101,8 @@ class SceneOptimizer:
         # Ortho-axis (PCA) alignment of the exported scene (reference
         # scene_optimizer.py:218, utils/ellipsoid.py); rigid, so the Sim(3)
         # pose comparisons above are unaffected.
-        export_scene, _ = align_scene_to_ortho_axes(final)
+        with tracing.span("export/align"):
+            export_scene, _ = align_scene_to_ortho_axes(final)
         if cfg.densify.enabled:
             metrics.extend(self._densify(loader, export_scene, save_outputs))
             t_s = self._stage("densify", t_s)
@@ -1068,18 +1111,23 @@ class SceneOptimizer:
             from gtsfm_tpu_torch.visualization.web_viewer import export_web_viewer
 
             out = cfg.output_root
-            colmap_io.export_scene_as_colmap_text(
-                export_scene, os.path.join(out, "ba_output"),
-                file_names=loader.image_filenames(), image_sizes=sizes)
-            self._save_reports(metrics, frontend_reports)
-            save_process_graph(cfg, os.path.join(out, "plots"))
+            with tracing.span("export/colmap"):
+                colmap_io.export_scene_as_colmap_text(
+                    export_scene, os.path.join(out, "ba_output"),
+                    file_names=loader.image_filenames(), image_sizes=sizes)
+            with tracing.span("export/reports"):
+                self._save_reports(metrics, frontend_reports)
+            with tracing.span("export/process_graph"):
+                save_process_graph(cfg, os.path.join(out, "plots"))
             if cfg.save_plots:
-                self._save_plots(loader, pairs, feats, res_np, match_idx, final, edges,
-                                 wti_gt if gt_valid.sum() >= 3 else None)
+                with tracing.span("export/plots"):
+                    self._save_plots(loader, pairs, feats, res_np, match_idx, final, edges,
+                                     wti_gt if gt_valid.sum() >= 3 else None)
             # Interactive 3D web viewer (reference rtf_vis_tool equivalent):
             # one standalone HTML file.
-            export_web_viewer(os.path.join(out, "ba_output"), os.path.join(out, "viewer.html"),
-                              metrics_dir=os.path.join(out, "result_metrics"))
+            with tracing.span("export/viewer"):
+                export_web_viewer(os.path.join(out, "ba_output"), os.path.join(out, "viewer.html"),
+                                  metrics_dir=os.path.join(out, "result_metrics"))
         self._stage("export", t_s)
         return ReconstructionResult(scene=final, metrics=metrics, wRi_pre_ba=wRi_pre_ba, wti_pre_ba=wti_pre_ba)
 

@@ -153,6 +153,35 @@ def test_metrics_groups_match(scene):
         assert (out / "gtsfm_metrics_report.html").is_file()
 
 
+def test_result_trace_holds_the_spans(scene):
+    """The port's result carries its run's span table: every back-end and
+    export span that ran (the two-view and feature stages are replaced
+    here), translation averaging's recovery twice with one IRLS and one
+    Gauss-Newton sub-span a call, and self seconds within host seconds; an
+    unprofiled run has no device counts."""
+    trace = scene["port"].trace
+    assert set(trace) == {"spans"}
+    spans = trace["spans"]
+    expected = {"retrieval/pairs", "two_view/cache", "two_view/gt_reports", "back_end/viewgraph",
+                "back_end/viewgraph/gt_metrics", "back_end/rotation_averaging", "back_end/tracks",
+                "back_end/tracks/union_find", "back_end/tracks/rays", "back_end/translation_averaging",
+                "back_end/translation_averaging/mfas", "back_end/translation_averaging/init",
+                "back_end/translation_averaging/recovery", "back_end/translation_averaging/recovery/irls",
+                "back_end/translation_averaging/recovery/gauss_newton", "back_end/triangulation", "back_end/ba",
+                "back_end/gt_alignment", "export/align", "export/colmap", "export/reports",
+                "export/process_graph", "export/viewer"}
+    assert set(spans) == expected
+    recovery = "back_end/translation_averaging/recovery"
+    assert [spans[n]["calls"] for n in (recovery, recovery + "/irls", recovery + "/gauss_newton")] == [2, 2, 2]
+    assert spans[recovery]["self_s"] == pytest.approx(
+        spans[recovery]["host_s"] - spans[recovery + "/irls"]["host_s"] - spans[recovery + "/gauss_newton"]["host_s"],
+        abs=1e-9)
+    for name, row in spans.items():
+        assert 0.0 <= row["self_s"] <= row["host_s"] + 1e-9, name
+        if name.count("/") == 1 and name.startswith("back_end/"):
+            assert row["calls"] == 1, name
+
+
 def test_colmap_models_match(scene):
     """The COLMAP text models: the same cameras, the same images with poses
     within 1e-2 deg / 1e-3 of the extent, and the same number of points."""

@@ -25,7 +25,9 @@ on the CPU (back_end_cpu_check). Last, the default configuration from
 pixels: the port's SIFT preset (4096 keypoints, mutual-NN at ratio 0.8,
 512-pair chunks) on the 128-image survey's renders, cold, warm and profiled
 (run_sift: cameras, rotation error after Sim(3), reprojection error, stage
-seconds and peak memory, every output file), SIFT and mutual-NN on the card
+seconds and peak memory, every output file), translation averaging's
+recovery kernel on run_sift's own two recovery calls against the plain
+PyTorch loop (ta_recovery_check), SIFT and mutual-NN on the card
 against the CPU (sift_cpu_check). Then the other front ends: KAZE, ORB,
 BRISK, FAST and Harris on the card against the CPU with match_hamming
 (classical_cpu_check), SceneOptimizer.run with KAZE, ORB and BRISK on the
@@ -77,6 +79,7 @@ no result.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import io
 import json
 import multiprocessing
@@ -837,6 +840,7 @@ def run_deep(dev):
     """SceneOptimizer.run on the 12-image synthetic scene with the deep preset
     (seeded weights), end to end with save_outputs: the port's main path."""
     from gtsfm_tpu_torch.loader.synthetic import SyntheticAerialLoader
+    from gtsfm_tpu_torch.multiview import translation_averaging as ta
     from gtsfm_tpu_torch.ops import attention
     from gtsfm_tpu_torch.pipeline.scene_optimizer import ReconstructionResult, SceneOptimizer
 
@@ -845,25 +849,34 @@ def run_deep(dev):
     loader = SyntheticAerialLoader(num_images=12)
     t0 = time.perf_counter()
     attention.flash_attention.launches = 0
+    ta._recover_translations_kernel.launches = 0
     result = opt.run(loader, save_outputs=True)
     torch.cuda.synchronize()
     launches = attention.flash_attention.launches
+    ta_launches = ta._recover_translations_kernel.launches
     seconds = time.perf_counter() - t0
     groups = metric_groups(result)
     reason = groups["total_summary_metrics"].get("degraded_reason", "complete")
     files = [os.path.join(out_root, "result_metrics", f)
              for f in ("total_summary_metrics.json", "summary.json", "gtsfm_metrics_report.html")]
-    log(f"run_deep: {seconds:.2f} s, attention kernel launches {launches}, ended: {reason}, "
+    log(f"run_deep: {seconds:.2f} s, attention kernel launches {launches}, recovery kernel launches "
+        f"{ta_launches}, ended: {reason}, "
         f"verified pairs {groups['two_view_metrics']['num_verified_pairs']}, "
         f"stage seconds {json.dumps({k: round(v, 4) for k, v in opt.stage_seconds.items()})}")
     if not isinstance(result, ReconstructionResult):
         raise AssertionError(f"run returned {type(result)}")
     if launches < 4 * 9:
         raise AssertionError(f"run ran {launches} attention launches on the card, expected >= 36")
+    # a scene that ends before translation averaging (the seeded weights'
+    # empty view graph) launches no recovery
+    ta_expected = TA_RECOVERY_LAUNCHES_PER_SCENE if "back_end/translation_averaging" in opt.stage_seconds else 0
+    if ta_launches != ta_expected:
+        raise AssertionError(f"run ran {ta_launches} recovery kernel launches, expected {ta_expected}")
     missing = [f for f in files if not os.path.isfile(f)]
     if missing:
         raise AssertionError(f"run wrote no {missing}")
-    return dict(seconds=seconds, launches=launches, ended=reason, stage_seconds=opt.stage_seconds)
+    return dict(seconds=seconds, launches=launches, ta_recovery_launches=ta_launches, ended=reason,
+                stage_seconds=opt.stage_seconds)
 
 
 def known_scene_features(loader, max_keypoints: int = 2048, keep: float = 0.7, density: float = 20.0,
@@ -1878,15 +1891,20 @@ def run_sift(dev, loader):
     output), then a warm run under the port's profile_dir tracing. Bars:
     >= 95% of the cameras (122/128), rotation error after Sim(3) max <= 1 deg and median
     <= 0.1 deg, mean reprojection <= 1 px, and the output files."""
+    from gtsfm_tpu_torch.multiview import translation_averaging as ta
     from gtsfm_tpu_torch.pipeline.scene_optimizer import SceneOptimizer
 
     out_root = os.path.join(ROOT, "build", "chip_smoke_run_sift")
     opt = SceneOptimizer(sift_config(out_root), device=dev)
     runs, results = {}, {}
+    ta._recover_translations_kernel.launches = 0
     for name in ("cold", "warm"):
         shutil.rmtree(out_root, ignore_errors=True)
         t0 = time.perf_counter()
-        results[name] = opt.run(loader, save_outputs=True)
+        with RecoveryCalls(ta) if name == "cold" else contextlib.nullcontext() as recorded:
+            results[name] = opt.run(loader, save_outputs=True)
+        if name == "cold":
+            recovery_calls = recorded.calls
         if dev.type == "cuda":
             torch.cuda.synchronize()
         runs[name] = dict(seconds=time.perf_counter() - t0, stage_seconds=dict(opt.stage_seconds),
@@ -1938,7 +1956,78 @@ def run_sift(dev, loader):
     out["profile"] = trace_summary(os.path.join(prof_dir, "trace.json"), ("features/", "two_view/", "back_end/"),
                                    top=14)
     out["profile"]["stage_seconds"] = dict(opt.stage_seconds)
+    out["ta_recovery_launches"] = ta._recover_translations_kernel.launches
+    log(f"run_sift: recovery kernel launches over its 3 scenes {out['ta_recovery_launches']}")
+    if out["ta_recovery_launches"] != 3 * TA_RECOVERY_LAUNCHES_PER_SCENE or len(recovery_calls) != 2:
+        raise AssertionError(f"run_sift ran {out['ta_recovery_launches']} recovery kernel launches in 3 scenes "
+                             f"and {len(recovery_calls)} recovery calls in its cold one, expected "
+                             f"{3 * TA_RECOVERY_LAUNCHES_PER_SCENE} and 2")
     out["_scene"] = cold.scene
+    out["_recovery_calls"] = recovery_calls
+    return out
+
+
+# Translation averaging's recovery kernel (csrc/ta_recovery.cu): 2 calls a
+# scene, one launch per phase each.
+TA_RECOVERY_LAUNCHES_PER_SCENE = 4
+# Kernel against the float32 PyTorch loop on the same card inputs, largest
+# coordinate gap as a share of the scene's extent: ~4x the largest reading
+# on an H100 (4.5e-7, the sift128 scene's inputs; each version's own error
+# against float64 is up to 3.9e-7 of the extent there).
+TA_RECOVERY_REL = 2e-6
+
+
+class RecoveryCalls:
+    """Records the arguments of every translation-recovery call made while
+    installed in place of translation_averaging._recover_translations_gn,
+    which it still calls; the tensors are cloned, on their device."""
+
+    def __init__(self, ta):
+        self.ta, self.inner, self.calls = ta, ta._recover_translations_gn, []
+
+    def __call__(self, *args, **kwargs):
+        bound = inspect.signature(self.inner).bind(*args, **kwargs)
+        bound.apply_defaults()
+        self.calls.append({k: v.clone() if torch.is_tensor(v) else v for k, v in bound.arguments.items()})
+        return self.inner(*args, **kwargs)
+
+    def __enter__(self):
+        self.ta._recover_translations_gn = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ta._recover_translations_gn = self.inner
+
+
+def ta_recovery_check(dev, calls, reps: int = 20, plain_reps: int = 3):
+    """The recovery kernel on run_sift's own two recovery calls (the cold
+    scene's inputs, on the card) against the plain PyTorch loop on the same
+    inputs: the largest coordinate gap to the float32 loop (bar
+    TA_RECOVERY_REL of the extent), and both against the loop in float64;
+    CUDA-event ms of a kernel call (both phases; mean of ``reps`` after a
+    warm one) and of the loop (mean of ``plain_reps``)."""
+    from gtsfm_tpu_torch.multiview import translation_averaging as ta
+
+    out = []
+    for k, kw in enumerate(calls):
+        plain_kw = {name: v for name, v in kw.items() if name != "incidence"}
+        t_kernel = ta._recover_translations_gn(**kw)
+        t_plain = ta._recover_translations_plain(**plain_kw)
+        t_ref = ta._recover_translations_plain(**{name: v.double() if torch.is_tensor(v) and v.is_floating_point()
+                                                  else v for name, v in plain_kw.items()})
+        kernel_ms = time_ms(lambda: ta._recover_translations_gn(**kw), reps)
+        plain_ms = time_ms(lambda: ta._recover_translations_plain(**plain_kw), plain_reps)
+        extent = float((t_ref.max(0).values - t_ref.min(0).values).max())
+        err = float((t_kernel - t_plain).abs().max())
+        rec = dict(call=k, num_nodes=int(kw["num_nodes"]), edges=int(kw["edges_a"].shape[0]), iters=kw["iters"],
+                   gn_iters=kw["gn_iters"], ms=kernel_ms, plain_ms=plain_ms, extent=extent, max_abs_err=err,
+                   tolerance=TA_RECOVERY_REL * extent,
+                   kernel_err_vs_float64=float((t_kernel.double() - t_ref).abs().max()),
+                   plain_err_vs_float64=float((t_plain.double() - t_ref).abs().max()))
+        log(f"ta_recovery_check: {json.dumps(rec)}")
+        if not err <= rec["tolerance"]:
+            raise AssertionError(f"recovery kernel vs the float32 loop: {err} > {rec['tolerance']} (call {k})")
+        out.append(rec)
     return out
 
 
@@ -3805,6 +3894,7 @@ def main() -> int:
     rig_check = phase("rig_cpu_check", rig_cpu_check, dev)
     survey = phase("render_survey", survey_loader, 128, 8)
     sift_run = phase("run_sift", run_sift, dev, survey)
+    ta_check = phase("ta_recovery_check", ta_recovery_check, dev, sift_run.pop("_recovery_calls"))
     dist_survey = phase("distributed_survey", distributed_survey, dev, survey, sift_run)
     two_ranks = phase("distributed_two_ranks", distributed_two_ranks, dev, known.pop("_scene"), survey, sift_run)
     astro = phase("astrovision_mesh", astrovision_mesh, dev, survey)
@@ -3855,13 +3945,29 @@ def main() -> int:
         "tf32_bound_ms": path["tf32_bound_ms"],
         "sass": sass,
         "extra_shapes": extra,
+    }, {
+        "name": "ta_recovery",
+        "route": "cuda",
+        "source": "gtsfm_tpu_torch/csrc/ta_recovery.cu",
+        "replaces": None,  # no TPU kernel: the JAX package runs this loop as jitted XLA
+        "launches": deep["ta_recovery_launches"],
+        "launches_by_path": {"run": deep["ta_recovery_launches"], "run_sift": sift_run["ta_recovery_launches"]},
+        "max_abs_err": max(c["max_abs_err"] for c in ta_check),
+        "tolerance": min(c["tolerance"] for c in ta_check),
+        # the 150-sweep call, the larger of the two
+        "ms": ta_check[0]["ms"],
+        "plain_ms": ta_check[0]["plain_ms"],
+        "bound_ms": None,
+        "bound_by": "none: one block on one SM; 4 block barriers and the per-node gathers a PCG step set "
+                    "its time, not bytes or operations",
+        "calls": ta_check,
     }]
     log(json.dumps({"slice": {k: slice_out[k] for k in ("pairs_count", "keypoints", "matches", "verified",
                                                           "stages", "launches")},
                     "profile": profile, "cross_check": cross, "known_geometry": geo,
                     "checks": checks, "run_deep": deep, "back_end_known": known,
                     "back_end_cpu_check": cpu_check, "rig_known": rig, "rig_cpu_check": rig_check,
-                    "run_sift": sift_run, "sift_cpu_check": sift_check,
+                    "run_sift": sift_run, "ta_recovery_check": ta_check, "sift_cpu_check": sift_check,
                     "runner_cli": cli, "superglue_cpu_check": sg_check, "lightglue_adaptive": adaptive,
                     "verifiers_check": zoo, "superglue_known": sg_known, "run_unified": unified,
                     "retrieval": retrieved, "classical_cpu_check": classical_check,

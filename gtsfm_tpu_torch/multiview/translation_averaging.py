@@ -12,6 +12,10 @@ JAX package draws them, so both packages use the same directions.
 Translation recovery: robust alternating least squares on scaled-direction
 residuals (CG on the weighted graph Laplacian), then a damped Gauss-Newton
 polish on the chordal direction cost with Huber weights (sigma 0.01, k 1.345).
+On CUDA tensors each of the two phases is one launch of the hand-written
+kernel ``csrc/ta_recovery.cu`` over an incidence list built once on the host
+(``incidence_tensor``); on CPU tensors the plain PyTorch loop
+(``_recover_translations_plain``) runs.
 
 Convention: the measurement for edge (i1, i2) is w_i2Ui1 = normalize(wti1 -
 wti2), the direction from camera i2 to camera i1 in world coordinates.
@@ -19,12 +23,14 @@ wti2), the direction from camera i2 to camera i1 in world coordinates.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 from gtsfm_tpu_torch import resolve_device
 from gtsfm_tpu_torch.common import tracing
+from gtsfm_tpu_torch.ops import cuda_build
 
 MAX_PROJECTION_DIRECTIONS = 2000  # reference averaging_1dsfm.py:53
 OUTLIER_WEIGHT_THRESHOLD = 0.125  # reference averaging_1dsfm.py:51
@@ -172,7 +178,7 @@ def _pcg(matvec, precond, b, x, iters: int = 40):
     return x
 
 
-def _recover_translations_gn(
+def _recover_translations_plain(
     edges_a: torch.Tensor,
     edges_b: torch.Tensor,
     u_meas: torch.Tensor,  # (E, 3) world unit dir from node a toward node b
@@ -195,7 +201,10 @@ def _recover_translations_gn(
     reference's BinaryMeasurementPoint3 priors in rig_1dsfm.py:25) pin the
     full displacement t_b - t_a = u_e: their scale stays 1 and they fix the
     scale gauge, so the caller passes ``normalize_gauge=False`` with them.
-    Edge weights carry (NOISE_SIGMA / sigma_e)^2."""
+    Edge weights carry (NOISE_SIGMA / sigma_e)^2.
+
+    The plain PyTorch loop, on any device: ``_recover_translations_gn``
+    runs it for CPU tensors, and the kernel's tests hold the kernel to it."""
     n = num_nodes
     delta = 0.05
     eye3 = torch.eye(3, dtype=u_meas.dtype, device=u_meas.device)
@@ -257,6 +266,131 @@ def _recover_translations_gn(
             x = _pcg(H_mv, lambda r, Minv=Minv: torch.einsum("nij,nj->ni", Minv, r), -g, torch.zeros_like(g))
             t = t + (x - torch.mean(x, dim=0, keepdim=True))
     return t
+
+
+class Incidence(NamedTuple):
+    """Each node's incident edges, in a fixed order: the edges whose b end
+    it is (sign +1), then, from ``split``, those whose a end it is (sign
+    -1), each group by edge index. A node's sum over the first group less
+    its sum over the second is ``_segment_sum(y, edges_b) -
+    _segment_sum(y, edges_a)``."""
+
+    offsets: np.ndarray  # (n + 1,) int32: node v's incidences are [offsets[v], offsets[v + 1])
+    split: np.ndarray  # (n,) int32: its first incidence of sign -1 (offsets[v + 1] if none)
+    edge: np.ndarray  # (2E,) int32
+
+
+def edge_incidence(edges_a: np.ndarray, edges_b: np.ndarray, num_nodes: int) -> Incidence:
+    """The incidence list of the directed edges a -> b over ``num_nodes``
+    nodes (raises on an index outside them)."""
+    ea = np.asarray(edges_a, np.int64)
+    eb = np.asarray(edges_b, np.int64)
+    if ea.ndim != 1 or ea.shape != eb.shape:
+        raise ValueError(f"edge_incidence: edges_a {ea.shape} and edges_b {eb.shape} must be equal 1-D")
+    E = ea.shape[0]
+    if E and (min(ea.min(), eb.min()) < 0 or max(ea.max(), eb.max()) >= num_nodes):
+        raise ValueError(f"edge_incidence: an edge end lies outside the {num_nodes} nodes")
+    node = np.concatenate([eb, ea])
+    offsets = np.zeros(num_nodes + 1, np.int64)
+    np.cumsum(np.bincount(node, minlength=num_nodes), out=offsets[1:])
+    split = offsets[:-1] + np.bincount(eb, minlength=num_nodes)
+    edge = np.tile(np.arange(E, dtype=np.int64), 2)[np.argsort(node, kind="stable")]
+    return Incidence(*(a.astype(np.int32) for a in (offsets, split, edge)))
+
+
+def _recovery_kernels():
+    """The built library's (IRLS, Gauss-Newton, workspace floats) C
+    functions."""
+    lib = cuda_build.load("ta_recovery")
+    fns = (lib.gtsfm_ta_irls_f32, lib.gtsfm_ta_gauss_newton_f32, lib.gtsfm_ta_workspace_floats)
+    irls, gn, workspace_floats = fns
+    if irls.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        irls.argtypes = [ptr] * 10 + [i32] * 4 + [ptr]
+        gn.argtypes = [ptr] * 10 + [i32] * 3 + [ptr]
+        irls.restype = gn.restype = i32
+        workspace_floats.argtypes = [i32] * 2
+        workspace_floats.restype = ctypes.c_longlong
+    return fns
+
+
+def incidence_tensor(edges_a: np.ndarray, edges_b: np.ndarray, num_nodes: int, device) -> torch.Tensor:
+    """``edge_incidence``'s offsets, split and edge back to back, as the
+    int32 tensor on ``device`` that the recovery kernel reads."""
+    inc = edge_incidence(edges_a, edges_b, num_nodes)
+    return torch.from_numpy(np.concatenate([inc.offsets, inc.split, inc.edge])).to(device)
+
+
+def _recover_translations_kernel(edges_a, edges_b, u_meas, w_edge, t0, num_nodes, iters, gn_iters,
+                                 is_metric, sigma_e, normalize_gauge, incidence) -> torch.Tensor:
+    """``_recover_translations_plain`` on a card: one launch of
+    ``csrc/ta_recovery.cu`` per phase, each inside its span, over the
+    caller's ``incidence_tensor`` of the edges. Counts its launches in
+    ``_recover_translations_kernel.launches``."""
+    dev = t0.device
+    n, E = int(num_nodes), int(edges_a.shape[0])
+    if n <= 0:
+        return t0
+    if incidence is None:
+        raise ValueError("recovery kernel: pass incidence=incidence_tensor(edges_a, edges_b, num_nodes, device)")
+
+    def ready(x, dtype, shape):
+        if x is None:
+            return None
+        if tuple(x.shape) != shape:
+            raise ValueError(f"recovery kernel: expected shape {shape}, got {tuple(x.shape)}")
+        return x.to(device=dev, dtype=dtype).contiguous()
+
+    ea, eb = (ready(x, torch.int64, (E,)) for x in (edges_a, edges_b))
+    u, w = ready(u_meas, torch.float32, (E, 3)), ready(w_edge, torch.float32, (E,))
+    metric, sigma = ready(is_metric, torch.float32, (E,)), ready(sigma_e, torch.float32, (E,))
+    t_in, inc = ready(t0, torch.float32, (n, 3)), ready(incidence, torch.int32, (2 * n + 1 + 2 * E,))
+    t_mid, t_out = torch.empty_like(t_in), torch.empty_like(t_in)
+    irls, gn, workspace_floats = _recovery_kernels()
+    workspace = torch.empty(workspace_floats(n, E), dtype=torch.float32, device=dev)
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
+    graph = [ptr(x) for x in (ea, eb, u, w, metric, sigma, inc)]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        with tracing.span("back_end/translation_averaging/recovery/irls"):
+            err = irls(*graph, ptr(t_in), ptr(t_mid), ptr(workspace), n, E, int(iters), int(normalize_gauge), stream)
+        if err == 0:
+            with tracing.span("back_end/translation_averaging/recovery/gauss_newton"):
+                err = gn(*graph, ptr(t_mid), ptr(t_out), ptr(workspace), n, E, int(gn_iters), stream)
+    if err != 0:
+        raise RuntimeError(f"translation recovery kernel launch failed (cudaError {err})")
+    _recover_translations_kernel.launches += 2
+    return t_out
+
+
+_recover_translations_kernel.launches = 0
+
+
+def _recover_translations_gn(
+    edges_a: torch.Tensor,
+    edges_b: torch.Tensor,
+    u_meas: torch.Tensor,  # (E, 3) world unit dir from node a toward node b
+    w_edge: torch.Tensor,  # (E,) weights (inlier mask)
+    t0: torch.Tensor,  # (n, 3) init
+    num_nodes: int,
+    iters: int = 60,
+    gn_iters: int = 15,
+    is_metric: torch.Tensor | None = None,  # (E,) {0,1}: u_meas is a full displacement
+    sigma_e: torch.Tensor | None = None,  # (E,) per-edge noise sigma
+    normalize_gauge: bool = True,
+    incidence: torch.Tensor | None = None,  # incidence_tensor of the edges: needed on a card
+) -> torch.Tensor:
+    """Robust translation recovery (``_recover_translations_plain`` says
+    what it computes): the kernel for CUDA tensors, the plain loop for CPU
+    ones."""
+    if t0.device.type == "cuda":
+        return _recover_translations_kernel(edges_a, edges_b, u_meas, w_edge, t0, num_nodes, iters, gn_iters,
+                                            is_metric, sigma_e, normalize_gauge, incidence)
+    return _recover_translations_plain(edges_a, edges_b, u_meas, w_edge, t0, num_nodes, iters, gn_iters,
+                                       is_metric, sigma_e, normalize_gauge)
 
 
 def select_tracks_for_averaging(
@@ -377,10 +511,11 @@ def run_translation_averaging(
 
         # Edge direction from i2 (a) to i1 (b); prior rows last.
         n_pri = len(prior_edges) if has_priors else 0
-        ea = tensor(np.concatenate([edges[:, 1], np.asarray(extra_a, np.int64)]
-                                   + ([prior_edges[:, 1]] if has_priors else [])), torch.int64)
-        eb = tensor(np.concatenate([edges[:, 0], np.asarray(extra_b, np.int64)]
-                                   + ([prior_edges[:, 0]] if has_priors else [])), torch.int64)
+        ea_np = np.concatenate([edges[:, 1], np.asarray(extra_a, np.int64)]
+                               + ([prior_edges[:, 1]] if has_priors else [])).astype(np.int64)
+        eb_np = np.concatenate([edges[:, 0], np.asarray(extra_b, np.int64)]
+                               + ([prior_edges[:, 0]] if has_priors else [])).astype(np.int64)
+        ea, eb = tensor(ea_np, torch.int64), tensor(eb_np, torch.int64)
         u = tensor(np.concatenate([w_dirs.astype(np.float32)] + ([np.stack(extra_u)] if extra_u else [])
                                   + ([prior_disp.astype(np.float32)] if has_priors else [])))
         is_metric = np.zeros(ea.shape[0], np.float32)
@@ -389,6 +524,8 @@ def run_translation_averaging(
             is_metric[-n_pri:] = 1.0
             sigma[-n_pri:] = np.asarray(prior_sigma, np.float32)
         metric_kw = dict(is_metric=tensor(is_metric), sigma_e=tensor(sigma), normalize_gauge=not has_priors)
+        if dev.type == "cuda":  # the kernel's incidence list, once for both calls
+            metric_kw["incidence"] = incidence_tensor(ea_np, eb_np, n_total, dev)
         ones = np.ones(len(extra_a) + n_pri, np.float32)
     with tracing.span("back_end/translation_averaging/recovery"):
         t = _recover_translations_gn(ea, eb, u, tensor(np.concatenate([inliers.astype(np.float32), ones])),

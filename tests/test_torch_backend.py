@@ -281,6 +281,37 @@ def test_translation_averaging_matches(rng):
                                   jax_ta.select_tracks_for_averaging(cam, mask, 10))
 
 
+@pytest.mark.parametrize("n,E", [(12, 40), (30, 120), (7, 0), (40, 25)])
+def test_edge_incidence_gathers_equal_segment_sums(rng, n, E):
+    """The recovery kernel's per-node signed gathers, evaluated in numpy over
+    the host's incidence list, equal the plain loop's two segment sums (and
+    its degree sum); random graphs with self-loops, repeated edges and nodes
+    without edges."""
+    ea, eb = rng.integers(0, n, E), rng.integers(0, n, E)
+    y = rng.normal(size=(E, 3)).astype(np.float32)
+    w = rng.random(E).astype(np.float32)
+    inc = ta.edge_incidence(ea, eb, n)
+    assert inc.offsets[0] == 0 and inc.offsets[-1] == 2 * E and np.all(np.diff(inc.offsets) >= 0)
+    assert np.all((inc.offsets[:-1] <= inc.split) & (inc.split <= inc.offsets[1:]))
+    gathered, degree = np.zeros((n, 3)), np.zeros(n)
+    for v in range(n):
+        k = slice(inc.offsets[v], inc.offsets[v + 1])
+        edge, sign = inc.edge[k], np.where(np.arange(k.start, k.stop) < inc.split[v], 1, -1)
+        np.testing.assert_array_equal(np.where(sign > 0, eb[edge], ea[edge]), v)
+        gathered[v] = (sign[:, None] * y[edge]).sum(0)
+        degree[v] = w[edge].sum()
+    a, b = torch.from_numpy(ea), torch.from_numpy(eb)
+    want = ta._segment_sum(torch.from_numpy(y), b, n) - ta._segment_sum(torch.from_numpy(y), a, n)
+    want_degree = ta._segment_sum(torch.from_numpy(w), a, n) + ta._segment_sum(torch.from_numpy(w), b, n)
+    np.testing.assert_allclose(gathered, want.numpy(), atol=1e-5)
+    np.testing.assert_allclose(degree, want_degree.numpy(), atol=1e-5)
+    packed = ta.incidence_tensor(ea, eb, n, "cpu")
+    assert packed.dtype == torch.int32
+    np.testing.assert_array_equal(packed.numpy(), np.concatenate([inc.offsets, inc.split, inc.edge]))
+    with pytest.raises(ValueError, match="outside"):
+        ta.edge_incidence(np.append(ea, n), np.append(eb, 0), n)
+
+
 # ------------------------------------------------------------- triangulation
 
 

@@ -4,14 +4,15 @@ held against its limit in the configuration file.
 
 A scene fails when any of its numbers is outside its limit; ``correct``
 holds when no scene fails. Each number is reported as its worst over the
-scenes checked."""
+scenes checked. ``NUMBERS`` are every cell's; a learned model's module
+(``models/``) adds its own."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from sfm_bench import reference, scene
+from sfm_bench import reference, registry, scene
 
 # name -> (how the worst of several scenes is taken, the side the limit bounds)
 NUMBERS = {
@@ -24,9 +25,15 @@ NUMBERS = {
     "averaged_rot_median_deg": (max, "max"),
     "ba_step_deg": (max, "max"),
     "ba_step_centre": (max, "max"),
-    "sg_desc_err": (max, "max"),
-    "sg_attn_err": (max, "max"),
 }
+
+
+def numbers_of(models) -> dict:
+    """``NUMBERS``, then each model module's own, in that order."""
+    out = dict(NUMBERS)
+    for _, mod in models:
+        out.update(mod.NUMBERS)
+    return out
 
 
 def _np(t) -> np.ndarray:
@@ -133,13 +140,16 @@ def sg_numbers(sd: dict, feats, pairs, captured: dict, captured_attn: dict, max_
     return {"sg_desc_err": desc, "sg_attn_err": attn_err}
 
 
-def judge(per_scene: list[dict], limits: dict) -> tuple[dict, list[bool]]:
+def judge(per_scene: list[dict], limits: dict, numbers: dict | None = None) -> tuple[dict, list[bool]]:
     """(the worst reading of each number with its limit, whether each scene
-    passed). Every number a scene reports is held to its limit; a reading
-    that is not a number (NaN) fails."""
+    passed). Every number of ``numbers`` (by default those of ``NUMBERS``
+    and of every model module) that a scene reports is held to its limit;
+    a reading that is not a number (NaN) fails."""
+    if numbers is None:
+        numbers = numbers_of(registry.models())
     worst = {}
     ok = [True] * len(per_scene)
-    for name, (pick, side) in NUMBERS.items():
+    for name, (pick, side) in numbers.items():
         vals = [s[name] for s in per_scene if name in s]
         if not vals:
             continue

@@ -6,12 +6,9 @@ readings) and the control's (the upper readings).
 
 The control is the program with its final bundle-adjustment stage in
 float32 (the port's own float32 LM, as its earlier stages run) where the
-configuration states float64, and, for a SuperGlue cell, the reference's
-SuperGlue put in the program's place where the configuration states float32
-with TF32 off: once with every product in TF32 (``tf32``), once with only
-the two attention products in single-pass TF32 (``tf32_attention``, the
-operands rounded to TF32's mantissa), each judged by ``check.judge``.
-Each seed reconstructs its scene once (no warm-up) and
+configuration states float64, and, for each learned model of the cell
+whose module has ``controls`` (``models/``), that model's controls on the
+run's own sample. Each seed reconstructs its scene once (no warm-up) and
 prints one JSON line of numbers. Not part of a benchmark run.
 """
 
@@ -27,30 +24,6 @@ from pathlib import Path
 from sfm_bench import run as bench
 
 
-def superglue_controls(r) -> dict:
-    """The SuperGlue numbers of each control in the program's place, on the
-    run's sampled pairs and rows, and whether ``check.judge`` passes them."""
-    import torch
-
-    from sfm_bench import check
-
-    pairs = r.survey.pairs()
-    res = int(r.cfg["pipeline"].get("max_resolution", 760))
-    out = {}
-    for name, all_tf32, attn_tf32 in (("tf32", True, False), ("tf32_attention", False, True)):
-        torch.backends.cuda.matmul.allow_tf32 = all_tf32
-        try:
-            md, attn = check.sg_reference(r.sg, r.feats, pairs, r.sg_pairs, res, r.device, r.sg_rows,
-                                          tf32_attention=attn_tf32)
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
-        nums = check.sg_numbers(r.sg, r.feats, pairs, md, attn, res, r.device, r.sg_rows)
-        worst, ok = check.judge([nums], r.cfg["limits"])
-        out.update({f"{k}_{name}": v for k, v in nums.items()})
-        out[f"correct_{name}"] = all(ok)
-    return out
-
-
 def readings(cell, seed: int, device, workdir: Path, control: bool) -> dict:
     import torch
 
@@ -63,8 +36,10 @@ def readings(cell, seed: int, device, workdir: Path, control: bool) -> dict:
            "numbers": {k: v["value"] for k, v in worst.items()},
            "scene_s": r.window_s, "stage_seconds": r.scenes[0]["stage_seconds"],
            "peak_gb": r.peak_bytes / 1e9}
-    if control and r.sg is not None:
-        out["numbers"].update(superglue_controls(r))
+    if control:
+        for mod, state in r.models:
+            if hasattr(mod, "controls"):
+                out["numbers"].update(mod.controls(state, r))
     del r
     gc.collect()
     if device.type == "cuda":

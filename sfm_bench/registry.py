@@ -1,13 +1,16 @@
 """Finds a cell's parts by name: the cell and its metrics in BENCHMARK.json,
 its configuration in ``configs/<config>.json``, its traffic mix in
-``traffic/<traffic>.json`` and each metric's reader in
-``metrics/<metric>.py``. A new configuration, traffic mix or metric is a new
-file and a new entry; nothing here names one."""
+``traffic/<traffic>.json``, each metric's reader in ``metrics/<metric>.py``
+and each learned model of the configuration in ``models/<group>.py`` (a
+top-level group of the configuration file with a module of that name). A
+new configuration, traffic mix, metric or model is a new file and a new
+entry; nothing here names one."""
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import sys
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -23,6 +26,7 @@ class Cell:
     traffic: dict
     end_to_end: list  # BENCHMARK.json metric entries this cell reports
     per_layer: list
+    models: list  # (group, module) of each learned model, in the configuration's order
 
 
 def load_json(path: Path) -> dict:
@@ -51,13 +55,28 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     names = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"] if _reports(m, name, names)]
     return Cell(name=name, chips=int(w["chips"]), config=config, traffic=traffic, end_to_end=e2e,
-                per_layer=per_layer)
+                per_layer=per_layer, models=models(config, root))
+
+
+def _load(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod  # dataclasses look their module up there
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def reader(metric: str, root: Path = ROOT):
     """The ``read(ctx)`` function of ``metrics/<metric>.py``."""
-    path = root / "sfm_bench" / "metrics" / f"{metric}.py"
-    spec = importlib.util.spec_from_file_location(f"sfm_bench_metric_{metric.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(root / "sfm_bench" / "metrics" / f"{metric}.py",
+                 f"sfm_bench_metric_{metric.replace('.', '_')}").read
+
+
+def models(config: dict | None = None, root: Path = ROOT) -> list:
+    """(group, module) of each top-level group of ``config`` that has a
+    ``models/<group>.py`` (see ``models/__init__.py``), in the file's order;
+    without a configuration, every module there, by name."""
+    here = root / "sfm_bench" / "models"
+    names = list(config) if config is not None else sorted(p.stem for p in here.glob("*.py"))
+    return [(g, _load(here / f"{g}.py", f"sfm_bench_model_{g}")) for g in names
+            if not g.startswith("_") and (here / f"{g}.py").is_file()]

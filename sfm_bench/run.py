@@ -3,8 +3,9 @@
     python3 -m sfm_bench.run --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 Set-up makes the cell's inputs from the seed (the survey's renders on the
-card, or its known features and SuperGlue weights), builds the port's
-SceneOptimizer from the configuration file and reconstructs the scene once,
+card, or its known features, and each learned model's weights through its
+module in ``models/``), builds the port's SceneOptimizer from the
+configuration file and reconstructs the scene once,
 which warms every shape the window uses (and, for a cell whose traffic is
 the cache, fills the caches). The window is a closed loop of whole scenes,
 one after another, until ``--seconds`` have passed; it ends when the scene
@@ -89,7 +90,7 @@ class Run:
         import numpy as np
         import torch
 
-        from sfm_bench import scene, system, weights
+        from sfm_bench import scene, system
 
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -97,35 +98,30 @@ class Run:
         # the configuration's scene; the run's seed orders its images
         self.survey = scene.make_survey(**cfg["scene"], order_seed=seed)
         front = cfg["front_end"]
-        self.feats = self.sg = None
+        self.feats = None
         out_root = str(self.workdir / "out")
         cache_dir = str(self.workdir / "cache")
         shutil.rmtree(self.workdir, ignore_errors=True)
         enable_cache = bool(self.traffic.get("cache", False))
         max_res = int(cfg["pipeline"].get("max_resolution", 760))
 
-        if cfg.get("superglue"):
-            self.sg = weights.superglue_weights(seed, dev)
+        pairs = self.survey.pairs()
+        if "pairs" in cfg and len(pairs) != int(cfg["pairs"]["count"]):
+            raise ValueError(f"the scene has {len(pairs)} pairs, the configuration states {cfg['pairs']['count']}")
+        # Each learned model's weights and check sample, the samples drawn
+        # from one generator in the configuration's order. The weights come
+        # before the inputs: where they fall in the allocator's history
+        # moves peak_device_gb by some hundred KB.
+        self.rng = np.random.default_rng(seed)
+        self.models = [(mod, mod.setup(self, cfg[group])) for group, mod in self.cell.models]
         images = scene.render(self.survey, dev) if front["kind"] == "render" else None
         self.loader = system.SurveyLoader(self.survey, images, max_res)
         if front["kind"] == "known":
             self.feats = scene.known_features(self.survey, seed, dev, **front["features"])
         self.opt = system.build(cfg["pipeline"], self.loader, dev, out_root, cache_dir, enable_cache,
-                                features=self.feats, superglue_weights=self.sg, bin_score=weights.BIN_SCORE)
-        pairs = self.survey.pairs()
-        if "pairs" in cfg and len(pairs) != int(cfg["pairs"]["count"]):
-            raise ValueError(f"the scene has {len(pairs)} pairs, the configuration states {cfg['pairs']['count']}")
-        rng = np.random.default_rng(seed)
-        sg = cfg.get("superglue", {})
-        n_sg = int(sg.get("check_pairs", 0))
-        self.sg_pairs = sorted(rng.choice(len(pairs), size=min(n_sg, len(pairs)), replace=False).tolist())
-        self.sg_rows = []
-        if self.sg_pairs:
-            K = self.feats.uv.shape[1]
-            self.sg_rows = sorted(rng.choice(K, size=min(int(sg["check_rows"]), K), replace=False).tolist())
-        self.probes = system.Probes(self.opt, self.sg_pairs, chunk=int(cfg["pipeline"].get("two_view.chunk_size", 512)),
-                                    float32_final_ba=self.control, attention_span=self.trace,
-                                    heads=int(sg.get("heads", 4)), attn_rows=self.sg_rows)
+                                features=self.feats, models=self.models)
+        self.probes = system.Probes(self.opt, self.models, chunk=int(cfg["pipeline"].get("two_view.chunk_size", 512)),
+                                    float32_final_ba=self.control, attention_span=self.trace)
         # Warm-up: the seed's scene itself, so that every shape the window
         # uses has run once; with the caches on, this scene fills them. Its
         # outputs (host files only) are not written.
@@ -211,15 +207,10 @@ class Run:
             if tv is None or tv["pairs"] != pairs:
                 nums["pairs_match"] = 0
             nums.update(check.scene_numbers(self.survey, s["result"], cap, tv))
-            if self.sg is not None:
-                got = cap.get("sg", {})
-                if sorted(got) != self.sg_pairs:
-                    nums["pairs_match"] = 0
-                nums.update(check.sg_numbers(self.sg, self.feats, pairs, got, cap.get("sg_attn", {}),
-                                             int(self.cfg["pipeline"].get("max_resolution", 760)), self.device,
-                                             self.sg_rows))
+            for mod, state in self.models:
+                nums.update(mod.numbers(state, self, cap))
             per_scene.append(nums)
-        worst, ok = check.judge(per_scene, self.cfg["limits"])
+        worst, ok = check.judge(per_scene, self.cfg["limits"], check.numbers_of(self.cell.models))
         for i, n in enumerate(per_scene):
             if n.get("pairs_match", 1) == 0:
                 ok[i] = False

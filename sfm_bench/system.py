@@ -2,21 +2,18 @@
 ``SceneOptimizer`` built from a configuration file, a loader that serves
 the benchmark's inputs through the port's loader interface, and probes that
 keep what the timed path produced for the check (the two-view results, the
-final bundle-adjustment stage's problem and result, and a sample of
-SuperGlue's matching descriptors and attention outputs) without changing
-what it computes.
+final bundle-adjustment stage's problem and result, and what each learned
+model's own probes keep) without changing what it computes.
 
-This is the only module of the benchmark that imports the port."""
+This module and the learned models' modules (``models/``) are the only
+ones of the benchmark that import the port."""
 
 from __future__ import annotations
 
 import numpy as np
-import torch
-from torch.profiler import record_function
 
 from gtsfm_tpu_torch.bundle import ba
 from gtsfm_tpu_torch.common.image import Image
-from gtsfm_tpu_torch.frontend.deep import superglue
 from gtsfm_tpu_torch.frontend.sift import SiftFeatures
 from gtsfm_tpu_torch.loader.base import LoaderBase
 from gtsfm_tpu_torch.pipeline.config import PipelineConfig
@@ -79,13 +76,14 @@ def known_features_stage(feats, cal: np.ndarray, width: int, height: int):
 
 
 def build(settings: dict, loader: SurveyLoader, device, output_root: str, cache_dir: str, enable_cache: bool,
-          features=None, superglue_weights=None, bin_score: float | None = None) -> SceneOptimizer:
+          features=None, models=()) -> SceneOptimizer:
+    """The port's scene optimizer, with the given features in place of
+    its detector and each (model module, state) of ``models`` installed."""
     opt = SceneOptimizer(pipeline_config(settings, output_root, cache_dir, enable_cache), device=device)
     if features is not None:
         opt.compute_features = known_features_stage(features, loader.cal, loader.s.width, loader.s.height)
-    if superglue_weights is not None:
-        opt._matchers["superglue"] = superglue.SuperGlue(params=superglue_weights, bin_score=bin_score,
-                                                         device=device)
+    for mod, state in models:
+        mod.install(opt, state)
     return opt
 
 
@@ -95,38 +93,23 @@ class Probes:
     - ``two_view``: the pairs and their verified relative poses;
     - ``ba_final``: the final bundle-adjustment stage's input scene, its
       bucket length and Huber threshold, and its result;
-    - ``sg``: SuperGlue's matching descriptors of the sampled pairs;
-    - ``sg_attn``: every attention call's output for the sampled pairs at
-      the sampled query rows, (calls, heads, rows, dh) a pair, gathered on
-      the card and copied to the host with the descriptors.
+    - what the probes of each (model module, state) of ``models`` keep
+      (``models/__init__.py``).
 
     With ``float32_final_ba`` (the control) the final stage runs the port's
     own float32 LM, as its earlier stages do, in place of float64. With
-    ``attention_span`` each attention call gets a profiler span of its own.
+    ``attention_span`` each attention call of a model gets a profiler span
+    of its own.
     """
 
-    def __init__(self, opt: SceneOptimizer, sg_pairs=(), chunk: int = 512, float32_final_ba: bool = False,
-                 attention_span: bool = False, heads: int = 4, attn_rows=()):
+    def __init__(self, opt: SceneOptimizer, models=(), chunk: int = 512, float32_final_ba: bool = False,
+                 attention_span: bool = False):
         self.opt = opt
-        self.sg_pairs = sorted(int(p) for p in sg_pairs)
-        self.chunk = chunk
         self.cur: dict = {}
-        self._pending: list = []  # this chunk's gathered attention outputs
-        self._index: dict = {}  # (chunk, pairs in it, device) -> (rows of the BH axis, query rows)
-        self._saved = [(ba, "lm_optimize_float64", ba.lm_optimize_float64),
-                       (superglue, "match_descriptors", superglue.match_descriptors),
-                       (superglue, "masked_attention", superglue.masked_attention)]
         orig_two_view = opt.run_two_view
         orig_final = ba.lm_optimize_float64
-        orig_match = superglue.match_descriptors
-        orig_attention = superglue.masked_attention
-
-        def in_chunk(c: int, n: int) -> list[int]:
-            return [p for p in self.sg_pairs if c * self.chunk <= p < c * self.chunk + n]
 
         def run_two_view(feats, cals, pairs, precomputed=None, return_stages=False):
-            self.cur["sg_calls"] = 0
-            self._pending = []
             out = orig_two_view(feats, cals, pairs, precomputed=precomputed, return_stages=return_stages)
             res = out[0]
             self.cur["two_view"] = dict(pairs=list(pairs), i2Ri1=res.i2Ri1.cpu().numpy(),
@@ -142,53 +125,19 @@ class Probes:
                                         scene_out=result.scene)
             return result
 
-        def match_descriptors(md0, md1, mask0, mask1, bin_score, match_threshold):
-            c = self.cur.get("sg_calls", 0)
-            self.cur["sg_calls"] = c + 1
-            rows = in_chunk(c, md0.shape[0])
-            if rows:
-                idx = torch.as_tensor([p - c * self.chunk for p in rows], device=md0.device)
-                got = self.cur.setdefault("sg", {})
-                for p, a, b in zip(rows, md0[idx].cpu().numpy(), md1[idx].cpu().numpy()):
-                    got[p] = (a, b)
-                if self._pending:
-                    taps = torch.stack(self._pending, 1).cpu().numpy()  # (pairs * heads, calls, rows, dh)
-                    taps = taps.reshape(len(rows), heads, *taps.shape[1:]).transpose(0, 2, 1, 3, 4)
-                    attn = self.cur.setdefault("sg_attn", {})
-                    for p, t in zip(rows, taps):
-                        attn[p] = t
-            self._pending = []
-            return orig_match(md0, md1, mask0, mask1, bin_score, match_threshold)
-
-        def masked_attention(q, k, v, kv_mask):
-            if attention_span:
-                with record_function("sfm_bench/attention"):
-                    out = orig_attention(q, k, v, kv_mask)
-            else:
-                out = orig_attention(q, k, v, kv_mask)
-            c, n = self.cur.get("sg_calls", 0), q.shape[0] // heads
-            key = (c, n, out.device)
-            if key not in self._index:
-                rows = in_chunk(c, n)
-                bh = [(p - c * self.chunk) * heads + h for p in rows for h in range(heads)]
-                self._index[key] = ((torch.as_tensor(bh, device=out.device)[:, None],
-                                     torch.as_tensor(list(attn_rows), device=out.device)[None, :]) if rows else None)
-            sel = self._index[key]
-            if sel is not None:
-                self._pending.append(out[sel])
-            return out
-
         opt.run_two_view = run_two_view
         ba.lm_optimize_float64 = final_stage
-        superglue.match_descriptors = match_descriptors
-        if self.sg_pairs or attention_span:
-            superglue.masked_attention = masked_attention
+        self._orig_final = orig_final
+        self.model_probes = [mod.probes(opt, state, chunk, attention_span) for mod, state in models]
 
     def begin_scene(self) -> dict:
         self.cur = {}
+        for m in self.model_probes:
+            m.begin_scene(self.cur)
         return self.cur
 
     def close(self) -> None:
-        for mod, name, fn in self._saved:
-            setattr(mod, name, fn)
+        for m in reversed(self.model_probes):
+            m.close()
+        ba.lm_optimize_float64 = self._orig_final
         self.opt.__dict__.pop("run_two_view", None)

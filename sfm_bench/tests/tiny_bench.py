@@ -51,18 +51,54 @@ TINY_SG_CONFIG = {
 }
 TINY_TRAFFIC = {"cache": False, "warmup_scenes": 0}
 
+# A learned model added as a file of its own: SuperGlue under the group name
+# ``scratch_glue``, with numbers of its own names. ``FAULT`` scales the
+# descriptors that its probe sees (0: none).
+SCRATCH_MODEL = '''"""SuperGlue as the group scratch_glue."""
+from sfm_bench.models import superglue
 
-def make_root(tmp: Path, extra_metric: str | None = None) -> Path:
+FAULT = {fault!r}
+NUMBERS = {{"scratch_desc_err": (max, "max"), "scratch_attn_err": (max, "max")}}
+setup, install = superglue.setup, superglue.install
+
+
+class Probe(superglue.Probe):
+    def match_descriptors(self, md0, md1, *args):
+        return super().match_descriptors(md0 * (1.0 + FAULT), md1, *args)
+
+
+def probes(opt, state, chunk, attention_span):
+    return Probe(state, chunk, attention_span)
+
+
+def numbers(state, run, capture):
+    return {{k.replace("sg_", "scratch_"): v for k, v in superglue.numbers(state, run, capture).items()}}
+'''
+TINY_SCRATCH_CONFIG = {
+    **{k: v for k, v in TINY_SG_CONFIG.items() if k != "superglue"},
+    "name": "tiny-scratch",
+    "scratch_glue": TINY_SG_CONFIG["superglue"],
+    "limits": {k.replace("sg_", "scratch_"): v for k, v in TINY_SG_CONFIG["limits"].items()},
+}
+
+
+def make_root(tmp: Path, extra_metric: str | None = None, scratch_fault: float | None = None) -> Path:
     """BENCHMARK.json and sfm_bench/ copied to ``tmp``, plus the cells
     ``tiny.known`` and ``tiny.superglue`` (configurations ``tiny-known`` and
-    ``tiny-superglue``, traffic ``tiny``) and, optionally, a per-layer
-    metric reader ``extra_metric`` that returns the scene count."""
+    ``tiny-superglue``, traffic ``tiny``), optionally a per-layer metric
+    reader ``extra_metric`` that returns the scene count and, with
+    ``scratch_fault``, the model ``models/scratch_glue.py`` (``SCRATCH_MODEL``
+    with that ``FAULT``) and its cell ``tiny.scratch``."""
     shutil.copy(REPO / "BENCHMARK.json", tmp / "BENCHMARK.json")
     shutil.copytree(REPO / "sfm_bench", tmp / "sfm_bench", ignore=shutil.ignore_patterns("__pycache__", "tests"))
     here = tmp / "sfm_bench"
     (here / "traffic" / "tiny.json").write_text(json.dumps(TINY_TRAFFIC))
     bench = json.loads((tmp / "BENCHMARK.json").read_text())
-    for cell, cfg in (("tiny.known", TINY_CONFIG), ("tiny.superglue", TINY_SG_CONFIG)):
+    cells = [("tiny.known", TINY_CONFIG), ("tiny.superglue", TINY_SG_CONFIG)]
+    if scratch_fault is not None:
+        (here / "models" / "scratch_glue.py").write_text(SCRATCH_MODEL.format(fault=scratch_fault))
+        cells.append(("tiny.scratch", TINY_SCRATCH_CONFIG))
+    for cell, cfg in cells:
         (here / "configs" / f"{cfg['name']}.json").write_text(json.dumps(cfg))
         bench["configs"].append({"name": cfg["name"], "source": "test", "file": f"sfm_bench/configs/{cfg['name']}.json",
                                  "reduced": [], "why": "test"})

@@ -12,6 +12,15 @@ a ``record_function`` and one context lookup. Names nest by ``/``: a child
 span's name extends its parent's (``back_end/tracks/union_find``). Spans
 open at coarse boundaries, never once per iteration of a hot loop.
 
+``count(name, value)`` is the table's other half: while a table is being
+recorded it adds ``value`` to the counter ``name`` of the run
+(``SpanTable.counters``, ``result.trace["counters"]`` after
+``SceneOptimizer.run``); without a table it does nothing. Counters hold
+amounts of work that the host already knows, such as the layers and tokens
+that adaptive LightGlue ran (``lightglue/*``, counted from the decisions it
+reads back between layers): a caller passes plain Python numbers, never a
+device value, so counting adds no device-to-host copy.
+
 ``device_counts`` reduces a torch.profiler chrome trace to counts per
 innermost span: launch calls (``cudaLaunchKernel``, ``cuLaunchKernel``,
 ``cudaGraphLaunch`` and their variants, one per call however many kernels it
@@ -46,10 +55,12 @@ COUNT_KEYS = ("launches", "kernels", "h2d_copies", "h2d_bytes", "d2h_copies", "d
 
 
 class SpanTable:
-    """Per span name: ``calls``, ``host_s`` and ``self_s`` of one run."""
+    """Per span name: ``calls``, ``host_s`` and ``self_s`` of one run; per
+    counter name, its sum (``counters``)."""
 
     def __init__(self):
         self.rows: dict[str, dict] = {}
+        self.counters: dict[str, int | float] = {}
         self._child_s: list[float] = []  # per open span: seconds its children covered so far
 
     def _open(self) -> None:
@@ -85,6 +96,14 @@ def recording():
         yield table
     finally:
         _current.reset(token)
+
+
+def count(name: str, value: int | float) -> None:
+    """Adds ``value`` (a host number) to the counter ``name`` of the table
+    being recorded, if any (see the module docstring)."""
+    table = _current.get()
+    if table is not None:
+        table.counters[name] = table.counters.get(name, 0) + value
 
 
 class span:

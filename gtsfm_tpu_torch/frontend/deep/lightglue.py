@@ -16,16 +16,46 @@ Numerics follow the Flax module: LayerNorm eps 1e-6, GELU with the tanh
 approximation, the ``concat([proj, proj])`` rotary layout with half-split
 rotation, the sim scale 1 / (D ** 0.25) ** 2 and -1e9 masking.
 
-Adaptive depth and width (upstream's early exit and point pruning) follow
-the JAX package's ``_run_adaptive``: the layers run one at a time with a host
-decision between them. The exit test reads the layer's token-confidence head;
-pruning keeps the tokens that are matchable enough or not yet confident,
-gathers them to the front of the token axis on the device (first ``new_k``
-kept tokens in slot order, padded slots pointing at token 0 under mask 0) and
-shrinks the axis to the next multiple of 128, never below
-``width_min_keypoints``. After pruning, cross-attention runs with
-Kq != Kkv. Matches of compacted tokens are scattered back to the original
-keypoint slots.
+Adaptive depth and width (upstream's early exit and point pruning) run the
+layers one at a time with the decisions taken on the host between them, one
+device-to-host read per layer for the whole batch. Each pair decides for
+itself, as upstream, which matches one pair at a time:
+
+- exit: after layer i a pair stops once the share of its input keypoints
+  that are not unconfident (token confidence below the layer threshold,
+  among its live tokens; pruned tokens count as confident, upstream's
+  ``check_if_stop``) exceeds ``depth_confidence``. Its matches come from
+  layer i's assignment head, and it leaves the batch (the remaining pairs'
+  tensors are gathered on the device);
+- pruning: on a side with more than ``width_min_keypoints`` live tokens,
+  the tokens that are confident and have matchability <= 1 -
+  ``width_confidence`` leave the later layers; a side left with no token
+  ends its pair without matches (upstream stops there too). The batch's
+  token axis is then compacted on the device to the next multiple of 128 of
+  the largest live count of the pairs still running (first the live tokens
+  in slot order, padded slots pointing at token 0 under mask 0), so
+  cross-attention runs with Kq != Kkv. The compacted width is layout only:
+  a pair's matches, depth and kept tokens do not depend on the other pairs
+  of its batch.
+
+Matches of compacted tokens are scattered back to the original keypoint
+slots. ``__call__``'s ``n_real`` says how many leading pairs are real; the
+rest repeat the last real pair (``run_two_view``'s padding), neither vote
+nor run, and get copies of its matches.
+
+Spans: ``two_view/match/layers`` (the network's layers),
+``two_view/match/decide`` (the exit and pruning decisions with their
+device-to-host read, and the batch's gathers) and ``two_view/match/assign``
+(assignment heads and match extraction, over blocks of at most
+``ASSIGN_BLOCK_BYTES`` of scores). Counters (``tracing.count``, adaptive
+path, real pairs only, from the numbers the decision reads bring back):
+``lightglue/pairs``; ``lightglue/live_tokens`` (both sides' live keypoints
+at the input); ``lightglue/layers`` (layers run); ``lightglue/token_layers``
+(live tokens of both sides summed over the layers run);
+``lightglue/attention_products`` (live queries x live keys summed over the
+layers and the four attention calls of each); ``lightglue/head_products``
+(n0 x n1 live tokens at the exit head); ``lightglue/decisions`` (decision
+reads).
 """
 
 from __future__ import annotations
@@ -36,6 +66,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from gtsfm_tpu_torch import resolve_device
+from gtsfm_tpu_torch.common import tracing
 from gtsfm_tpu_torch.frontend.deep.weights import flax_to_state_dict, lecun_normal_
 from gtsfm_tpu_torch.ops.attention import masked_attention
 from gtsfm_tpu_torch.ops.matching import mutual_max_matches
@@ -44,6 +75,11 @@ D_MODEL = 256
 NUM_HEADS = 4
 NUM_LAYERS = 9
 NEG = -1e9
+# Largest (pairs, K0, K1) float32 score block that the assignment holds at
+# once (about 127 pairs at 2048 x 2048 keypoints); each step of
+# assignment_scores makes temporaries of its size. Pairs are independent,
+# so blocking changes no result.
+ASSIGN_BLOCK_BYTES = 2 << 30
 
 
 def rotary_embed(pos: torch.Tensor, freqs: torch.Tensor):
@@ -176,21 +212,22 @@ class LightGlueNet(nn.Module):
     def heads_at(self, i: int, x0, x1):
         """Assignment head of layer i (upstream log_assignment[i]; the last
         layer's is ``final_proj`` / ``matchability``)."""
-        last = i >= NUM_LAYERS - 1
-        fp = self.final_proj if last else getattr(self, f"final_proj{i}")
-        mt = self.matchability if last else getattr(self, f"matchability{i}")
-        md0, md1 = fp(x0), fp(x1)
-        sim = torch.einsum("bkd,bld->bkl", md0, md1) / (D_MODEL**0.25) ** 2
-        return sim, mt(x0)[..., 0], mt(x1)[..., 0]
+        md0, md1 = self.match_descriptors(i, x0, x1)
+        z0, z1 = self.matchability_at(i, x0, x1)
+        return self.similarity(md0, md1), z0, z1
 
-    def confident_fraction(self, i: int, x0, x1, mask0, mask1):
-        """Fraction of valid tokens whose exit-confidence beats the layer
-        threshold (upstream TokenConfidence + check_if_stop), float32."""
-        head = getattr(self, f"token_conf{i}")
-        th = confidence_threshold(i)
-        n_conf = (torch.sum((torch.sigmoid(head(x0)[..., 0]) > th) * mask0)
-                  + torch.sum((torch.sigmoid(head(x1)[..., 0]) > th) * mask1))
-        return n_conf / torch.clamp(torch.sum(mask0) + torch.sum(mask1), min=1.0)
+    def match_descriptors(self, i: int, x0, x1):
+        """Layer i's matching descriptors (its head's final projection)."""
+        fp = self.final_proj if i >= NUM_LAYERS - 1 else getattr(self, f"final_proj{i}")
+        return fp(x0), fp(x1)
+
+    @staticmethod
+    def similarity(md0, md1):
+        return torch.einsum("bkd,bld->bkl", md0, md1) / (D_MODEL**0.25) ** 2
+
+    def matchability_at(self, i: int, x0, x1):
+        mt = self.matchability if i >= NUM_LAYERS - 1 else getattr(self, f"matchability{i}")
+        return mt(x0)[..., 0], mt(x1)[..., 0]
 
     def prune_scores(self, i: int, x0, x1):
         """Token exit-confidence and matchability of layer i (the two signals
@@ -199,11 +236,20 @@ class LightGlueNet(nn.Module):
         return (torch.sigmoid(head(x0)[..., 0]), torch.sigmoid(head(x1)[..., 0]),
                 torch.sigmoid(mt(x0)[..., 0]), torch.sigmoid(mt(x1)[..., 0]))
 
-    def forward(self, desc0, desc1, pos0, pos1, mask0, mask1):
+    def tokens(self, desc0, desc1, pos0, pos1, mask0, mask1):
+        """The token states after all NUM_LAYERS layers at full width."""
         x0, x1, cos0, sin0, cos1, sin1 = self.embed(desc0, desc1, pos0, pos1)
         for i in range(NUM_LAYERS):
             x0, x1 = self.layer(i, x0, x1, cos0, sin0, cos1, sin1, mask0, mask1)
-        return self.heads(x0, x1)
+        return x0, x1
+
+    def forward(self, desc0, desc1, pos0, pos1, mask0, mask1):
+        return self.heads(*self.tokens(desc0, desc1, pos0, pos1, mask0, mask1))
+
+
+def _round_up(n: int, m: int = 128) -> int:
+    """The next multiple of m at or above n, at least m."""
+    return max(m, -(-n // m) * m)
 
 
 def assignment_scores(sim, z0, z1, mask0, mask1):
@@ -233,8 +279,9 @@ class LightGlue:
         set (upstream default 0.95); width_confidence: adaptive width (point
         pruning) when set (upstream default 0.99): tokens that are confident
         and have matchability <= 1 - width_confidence leave the later layers
-        (compacted to multiples of 128, never below width_min_keypoints).
-        None / None runs all NUM_LAYERS at full width."""
+        of a side that holds more than width_min_keypoints live tokens (the
+        batch's token axes compacted to the next multiple of 128 of the
+        largest live count). None / None runs all NUM_LAYERS at full width."""
         self.device = resolve_device(device)
         self.net = LightGlueNet().to(self.device).eval()
         self.match_threshold = match_threshold
@@ -246,8 +293,12 @@ class LightGlue:
         self.params = None
         if params is not None:
             self.load(params)
-        self.last_depth: int | None = None  # layers executed on the last call
-        self.last_widths: tuple[int, int] | None = None  # final token counts (adaptive path)
+        self.last_depth: int | None = None  # layers executed on the last call (its deepest pair)
+        self.last_depths: list[int] | None = None  # layers each real pair of the last call ran
+        self.last_widths: tuple[int, int] | None = None  # token widths at the last exit (adaptive path)
+        # Optional hooks into the adaptive path (``layer``, ``exit``, ``done``;
+        # see _run_adaptive), for callers that keep what it computed.
+        self.observer = None
 
     def load(self, state_dict) -> "LightGlue":
         self.net.load_state_dict(state_dict)
@@ -291,68 +342,154 @@ class LightGlue:
         gathered = [torch.gather(t, 1, idx[..., None].expand(-1, -1, t.shape[-1])) for t in tensors]
         return idx, live.to(torch.float32), gathered
 
+    def _assign(self, i: int, rows: list[int], rows_dev, x0, x1, mask0, mask1, orig0, orig1, out_idx, out_mm):
+        """Layer i's assignment head and mutual-max matches for the batch's
+        pairs, over blocks of the pairs axis of at most ASSIGN_BLOCK_BYTES
+        of scores, scattered back to the original keypoint slots into the
+        rows ``rows`` (chunk rows; ``rows_dev`` on the device) of out_idx /
+        out_mm; a token that matches nothing writes to a spare column that
+        is dropped."""
+        net, obs = self.net, self.observer
+        P, W0 = mask0.shape
+        K0 = out_idx.shape[1]
+        step = max(1, ASSIGN_BLOCK_BYTES // (4 * W0 * mask1.shape[1]))
+        for s in range(0, P, step):
+            b = slice(s, s + step)
+            md0, md1 = net.match_descriptors(i, x0[b], x1[b])
+            if obs is not None:
+                obs.exit(i, rows[b], md0, md1, orig0[b], orig1[b], mask0[b], mask1[b])
+            z0, z1 = net.matchability_at(i, x0[b], x1[b])
+            idx_c, mm_c = _extract_matches(net.similarity(md0, md1), z0, z1, mask0[b], mask1[b],
+                                           self.match_threshold)
+            del md0, md1
+            ok = mm_c > 0
+            target = torch.gather(orig1[b], 1, torch.clamp(idx_c.long(), min=0))
+            slot = torch.where(ok, orig0[b], torch.full_like(orig0[b], K0))
+            blk_idx = torch.full((ok.shape[0], K0 + 1), -1, dtype=torch.int32, device=ok.device)
+            blk_idx.scatter_(1, slot, torch.where(ok, target, torch.full_like(target, -1)).to(torch.int32))
+            blk_mm = torch.zeros((ok.shape[0], K0 + 1), dtype=torch.float32, device=ok.device)
+            blk_mm.scatter_(1, slot, ok.to(torch.float32))
+            out_idx[rows_dev[b]] = blk_idx[:, :K0]
+            out_mm[rows_dev[b]] = blk_mm[:, :K0]
+
     def _run_adaptive(self, desc0, desc1, pos0, pos1, mask0, mask1):
-        """Early exit and point pruning: one layer at a time, with the exit
-        and pruning decisions taken on the host between layers (the JAX
-        package's _run_adaptive; upstream LightGlue.forward)."""
-        net = self.net
-        x0, x1, cos0, sin0, cos1, sin1 = net.embed(desc0, desc1, pos0, pos1)
+        """Early exit and point pruning per pair (module docstring): one
+        layer at a time, one device-to-host decision read per layer for
+        the batch, every selection and gather on the device."""
+        net, obs, dev = self.net, self.observer, self.device
         B, K0 = mask0.shape
         K1 = mask1.shape[1]
+        with tracing.span("two_view/match/layers"):
+            x0, x1, cos0, sin0, cos1, sin1 = net.embed(desc0, desc1, pos0, pos1)
         # orig*[b, k] = original keypoint slot of current token k
-        orig0 = torch.arange(K0, device=self.device).expand(B, K0)
-        orig1 = torch.arange(K1, device=self.device).expand(B, K1)
-        depth, exit_layer = NUM_LAYERS, NUM_LAYERS - 1
+        orig0 = torch.arange(K0, device=dev).expand(B, K0)
+        orig1 = torch.arange(K1, device=dev).expand(B, K1)
+        n_in = torch.clamp(torch.sum(mask0, 1) + torch.sum(mask1, 1), min=1.0)  # the exit ratio's denominator
+        out_idx = torch.full((B, K0), -1, dtype=torch.int32, device=dev)
+        out_mm = torch.zeros((B, K0), dtype=torch.float32, device=dev)
+        rows = list(range(B))  # chunk row of each running pair, on the host
+        rows_dev = torch.arange(B, device=dev)  # the same, on the device
+        depths = [NUM_LAYERS] * B
+        live: list[tuple[int, int]] = []  # live tokens (side 0, side 1) of each running pair, host
+        count = dict.fromkeys(("live_tokens", "token_layers", "attention_products", "head_products",
+                               "decisions"), 0)
+        widths = (K0, K1)
         for i in range(NUM_LAYERS):
-            x0, x1 = net.layer(i, x0, x1, cos0, sin0, cos1, sin1, mask0, mask1)
-            if i >= NUM_LAYERS - 1:
+            if obs is not None:
+                obs.layer(i, rows, orig0, orig1, mask0, mask1)
+            with tracing.span("two_view/match/layers"):
+                x0, x1 = net.layer(i, x0, x1, cos0, sin0, cos1, sin1, mask0, mask1)
+            if i == NUM_LAYERS - 1:
+                with tracing.span("two_view/match/assign"):
+                    self._assign(i, rows, rows_dev, x0, x1, mask0, mask1, orig0, orig1, out_idx, out_mm)
+                count["token_layers"] += sum(a + b for a, b in live)
+                count["attention_products"] += sum((a + b) ** 2 for a, b in live)
+                count["head_products"] += sum(a * b for a, b in live)
+                widths = (mask0.shape[1], mask1.shape[1])
                 break
-            conf0, conf1, m0, m1 = net.prune_scores(i, x0, x1)
-            th = confidence_threshold(i)
-            if self.depth_confidence is not None:
-                n_conf = float(torch.sum((conf0 > th) * mask0) + torch.sum((conf1 > th) * mask1))
-                n_tot = max(float(torch.sum(mask0) + torch.sum(mask1)), 1.0)
-                if n_conf / n_tot > self.depth_confidence:
-                    depth, exit_layer = i + 1, i
-                    break
-            if self.width_confidence is not None:
-                def prune_side(m, conf, mask, x, cos, sin, orig):
-                    # upstream get_pruning_mask: keep matchable-enough tokens
-                    # and tokens whose embedding has not converged yet
-                    keep = ((m > (1.0 - self.width_confidence)) | (conf <= th)) & (mask > 0)
-                    max_keep = int(torch.sum(keep, dim=1).max())
-                    new_k = max(((max_keep + 127) // 128) * 128, self.width_min_keypoints)
-                    if new_k >= mask.shape[1]:
-                        return mask, x, cos, sin, orig
-                    idx, new_mask, (x, cos, sin) = self._compact(keep, new_k, x, cos, sin)
-                    return new_mask, x, cos, sin, torch.gather(orig, 1, idx)
-
-                if mask0.shape[1] > self.width_min_keypoints:
-                    mask0, x0, cos0, sin0, orig0 = prune_side(m0, conf0, mask0, x0, cos0, sin0, orig0)
-                if mask1.shape[1] > self.width_min_keypoints:
-                    mask1, x1, cos1, sin1, orig1 = prune_side(m1, conf1, mask1, x1, cos1, sin1, orig1)
-        self.last_depth = depth
-        self.last_widths = (mask0.shape[1], mask1.shape[1])
-        sim, z0, z1 = net.heads_at(exit_layer, x0, x1)
-        idx_c, mm_c = _extract_matches(sim, z0, z1, mask0, mask1, self.match_threshold)
-        if mask0.shape[1] == K0 and mask1.shape[1] == K1:
-            return idx_c, mm_c
-        # Scatter compacted matches back to the original keypoint slots;
-        # unmatched tokens write to a spare column K0 that is dropped.
-        ok = mm_c > 0
-        target = torch.gather(orig1, 1, torch.clamp(idx_c.long(), min=0))
-        slot = torch.where(ok, orig0, torch.full_like(orig0, K0))
-        out_idx = torch.full((B, K0 + 1), -1, dtype=torch.int32, device=self.device)
-        out_idx.scatter_(1, slot, torch.where(ok, target, torch.full_like(target, -1)).to(torch.int32))
-        out_mm = torch.zeros((B, K0 + 1), dtype=torch.float32, device=self.device)
-        out_mm.scatter_(1, slot, ok.to(torch.float32))
-        return out_idx[:, :K0].contiguous(), out_mm[:, :K0].contiguous()
+            with tracing.span("two_view/match/decide"):
+                conf0, conf1, m0, m1 = net.prune_scores(i, x0, x1)
+                th = confidence_threshold(i)
+                stats = [torch.sum(mask0, 1), torch.sum(mask1, 1)]
+                exit_mask0, exit_mask1 = mask0, mask1  # an exiting pair prunes nothing
+                exit_dev = torch.zeros(len(rows), dtype=torch.bool, device=dev)
+                if self.depth_confidence is not None:
+                    unconf = torch.sum((conf0 < th) * mask0, 1) + torch.sum((conf1 < th) * mask1, 1)
+                    exit_dev = 1.0 - unconf / n_in > self.depth_confidence
+                    stats.append(exit_dev.to(torch.float32))
+                if self.width_confidence is not None:
+                    keep0 = ((m0 > 1.0 - self.width_confidence) | (conf0 <= th)) & (mask0 > 0)
+                    keep1 = ((m1 > 1.0 - self.width_confidence) | (conf1 <= th)) & (mask1 > 0)
+                    stats += [torch.sum(keep0, 1).to(torch.float32), torch.sum(keep1, 1).to(torch.float32)]
+                got = torch.stack(stats).cpu().tolist()  # the layer's one decision read
+                count["decisions"] += 1
+                live = [(int(a), int(b)) for a, b in zip(got[0], got[1])]
+                if i == 0:
+                    count["live_tokens"] += sum(a + b for a, b in live)
+                count["token_layers"] += sum(a + b for a, b in live)
+                count["attention_products"] += sum((a + b) ** 2 for a, b in live)
+                exits = [e > 0 for e in got[2]] if self.depth_confidence is not None else [False] * len(rows)
+                new_live, stay_dev, empty = live, ~exit_dev, [False] * len(rows)
+                if self.width_confidence is not None:
+                    w = self.width_min_keypoints
+                    new_live = [(int(k0) if a > w else a, int(k1) if b > w else b)
+                                for (a, b), k0, k1 in zip(live, got[-2], got[-1])]
+                    # a side with more than w live tokens keeps only its kept ones
+                    mask0 = torch.where(stats[0][:, None] > w, keep0, mask0 > 0).to(torch.float32)
+                    mask1 = torch.where(stats[1][:, None] > w, keep1, mask1 > 0).to(torch.float32)
+                    # a pair whose side lost every token ends without matches
+                    stay_dev = stay_dev & (torch.sum(mask0, 1) > 0) & (torch.sum(mask1, 1) > 0)
+                    empty = [not e and (a == 0 or b == 0) for e, (a, b) in zip(exits, new_live)]
+            if any(exits):
+                done = [j for j, e in enumerate(exits) if e]
+                for j in done:
+                    depths[rows[j]] = i + 1
+                count["head_products"] += sum(live[j][0] * live[j][1] for j in done)
+                widths = (mask0.shape[1], mask1.shape[1])
+                with tracing.span("two_view/match/assign"):
+                    # the exiting pairs in batch order, selected on the device
+                    sel = torch.argsort((~exit_dev).to(torch.int8), stable=True)[:len(done)]
+                    self._assign(i, [rows[j] for j in done], rows_dev[sel],
+                                 *(t[sel] for t in (x0, x1, exit_mask0, exit_mask1, orig0, orig1)), out_idx, out_mm)
+            for j, e in enumerate(empty):
+                if e:
+                    depths[rows[j]] = i + 1
+            stay = [j for j in range(len(rows)) if not exits[j] and not empty[j]]
+            if not stay:
+                break
+            with tracing.span("two_view/match/decide"):
+                if len(stay) < len(rows):
+                    sel = torch.argsort((~stay_dev).to(torch.int8), stable=True)[:len(stay)]
+                    x0, x1, cos0, sin0, cos1, sin1, mask0, mask1, orig0, orig1, n_in, rows_dev = (
+                        t[sel] for t in (x0, x1, cos0, sin0, cos1, sin1, mask0, mask1, orig0, orig1, n_in, rows_dev))
+                    rows = [rows[j] for j in stay]
+                live = [new_live[j] for j in stay]
+                for side in (0, 1):
+                    new_k = _round_up(max(p[side] for p in live))
+                    if side == 0 and new_k < mask0.shape[1]:
+                        idx, mask0, (x0, cos0, sin0) = self._compact(mask0 > 0, new_k, x0, cos0, sin0)
+                        orig0 = torch.gather(orig0, 1, idx)
+                    elif side == 1 and new_k < mask1.shape[1]:
+                        idx, mask1, (x1, cos1, sin1) = self._compact(mask1 > 0, new_k, x1, cos1, sin1)
+                        orig1 = torch.gather(orig1, 1, idx)
+        self.last_depths = depths
+        self.last_depth = max(depths)
+        self.last_widths = widths
+        tracing.count("lightglue/pairs", B)
+        tracing.count("lightglue/layers", sum(depths))
+        for name, v in count.items():
+            tracing.count(f"lightglue/{name}", v)
+        if obs is not None:
+            obs.done()
+        return out_idx, out_mm
 
     @torch.no_grad()
     def __call__(self, desc0, desc1, kpts0, kpts1, mask0, mask1,
-                 image_shape0, image_shape1):
+                 image_shape0, image_shape1, n_real: int | None = None):
         """(B, K, 256) descriptors, (B, K, 2) pixel keypoints, (B, K) masks ->
-        (match_idx (B, K0) int32, match_mask (B, K0) float32) on the device."""
+        (match_idx (B, K0) int32, match_mask (B, K0) float32) on the device.
+        ``n_real``: the leading pairs that are real (default all); the
+        others repeat the last real pair, do not run, and get its matches."""
         if self.params is None:
             raise ValueError("LightGlue has no weights (load a checkpoint or init_random)")
 
@@ -362,12 +499,28 @@ class LightGlue:
             return (kpts - size / 2.0) / torch.max(size)
 
         d0, d1, k0, k1, m0, m1 = (self._tensor(t) for t in (desc0, desc1, kpts0, kpts1, mask0, mask1))
+        B = d0.shape[0]
+        n = B if n_real is None else int(n_real)
         args = (d0, d1, norm_kpts(k0, image_shape0), norm_kpts(k1, image_shape1), m0, m1)
+        args = tuple(t[:n] for t in args) if n < B else args
         if self.depth_confidence is not None or self.width_confidence is not None:
-            return self._run_adaptive(*args)
-        sim, z0, z1 = self.net(*args)
-        self.last_depth = NUM_LAYERS
-        return _extract_matches(sim, z0, z1, m0, m1, self.match_threshold)
+            idx, mm = self._run_adaptive(*args)
+        else:
+            with tracing.span("two_view/match/layers"):
+                x0, x1 = self.net.tokens(*args)
+            idx = torch.full((n, args[4].shape[1]), -1, dtype=torch.int32, device=self.device)
+            mm = torch.zeros(idx.shape, dtype=torch.float32, device=self.device)
+            orig0 = torch.arange(idx.shape[1], device=self.device).expand(n, -1)
+            orig1 = torch.arange(args[5].shape[1], device=self.device).expand(n, -1)
+            with tracing.span("two_view/match/assign"):
+                self._assign(NUM_LAYERS - 1, list(range(n)), torch.arange(n, device=self.device), x0, x1,
+                             args[4], args[5], orig0, orig1, idx, mm)
+            self.last_depth = NUM_LAYERS
+            self.last_depths = [NUM_LAYERS] * n
+        if n < B:
+            idx = torch.cat([idx, idx[n - 1:n].expand(B - n, -1)])
+            mm = torch.cat([mm, mm[n - 1:n].expand(B - n, -1)])
+        return idx, mm
 
 
 def _state_keys() -> set[str]:

@@ -89,7 +89,8 @@ class ReconstructionResult:
     metrics: list[MetricsGroup]
     wRi_pre_ba: np.ndarray | None = None
     wti_pre_ba: np.ndarray | None = None
-    # The run's spans: {"spans": SceneOptimizer.span_table}, and, after a
+    # The run's spans and counters: {"spans": SceneOptimizer.span_table,
+    # "counters": tracing.SpanTable.counters}, and, after a
     # profiled run, "counts" (tracing.device_counts of its trace) and
     # "reduction_s" (the seconds that reduction took).
     trace: dict | None = None
@@ -342,16 +343,19 @@ class SceneOptimizer:
             self._matchers[fe.matcher_type] = m
         return self._matchers[fe.matcher_type]
 
-    def _deep_match(self, d1, d2, k1, k2, s1, s2, m1, m2):
+    def _deep_match(self, d1, d2, k1, k2, s1, s2, m1, m2, n_real: int | None = None):
         """Batched SuperGlue or LightGlue matching of superpoint features
-        (s1, s2: keypoint responses, which SuperGlue's encoder reads)."""
+        (s1, s2: keypoint responses, which SuperGlue's encoder reads).
+        ``n_real``: the chunk's leading pairs that are real, the rest
+        repeating the last of them; LightGlue runs only those (its per-pair
+        exits must not see padding), SuperGlue ignores it."""
         # The matchers only use the image shape to normalize keypoints, so
         # the max_resolution bound is adequate (as in the JAX package).
         shape = (self.config.max_resolution, self.config.max_resolution)
         matcher = self._deep_matcher()
         if self.config.frontend.matcher_type == "superglue":
             return matcher(d1, d2, k1, k2, s1, s2, m1, m2, shape, shape)
-        return matcher(d1, d2, k1, k2, m1, m2, shape, shape)
+        return matcher(d1, d2, k1, k2, m1, m2, shape, shape, n_real=n_real)
 
     def run_image_correspondences(self, loader: LoaderBase, pairs):
         """Detector-free matching (LoFTR) per pair + dedup aggregation: the
@@ -434,7 +438,7 @@ class SceneOptimizer:
             stacks = dict(desc=up([f.descriptor for f in feats]), mask=up([f.mask for f in feats]),
                           uv=up([f.uv for f in feats]), response=up([f.response for f in feats]), cal=up(cals))
         if len(pairs) <= chunk:
-            return self._run_two_view_chunk(pairs, stacks, return_stages, precomputed)
+            return self._run_two_view_chunk(pairs, stacks, return_stages, precomputed, n_real=len(pairs))
         results, idxs, stage_parts = [], [], {}
         for s in range(0, len(pairs), chunk):
             sub = list(pairs[s:s + chunk])
@@ -444,7 +448,7 @@ class SceneOptimizer:
             if precomputed is not None:
                 rows = torch.arange(s, s + chunk, device=self.device).clamp(max=s + n_real - 1)
                 pre = tuple(t[rows] for t in precomputed)
-            out = self._run_two_view_chunk(sub, stacks, return_stages, pre)
+            out = self._run_two_view_chunk(sub, stacks, return_stages, pre, n_real=n_real)
             results.append(_trim(out[0], n_real))
             idxs.append(out[1][:n_real])
             if return_stages:
@@ -456,7 +460,10 @@ class SceneOptimizer:
             return res, match_idx, {tag: _concat(parts) for tag, parts in stage_parts.items()}
         return res, match_idx
 
-    def _run_two_view_chunk(self, pairs, stacks, return_stages: bool = False, precomputed=None):
+    def _run_two_view_chunk(self, pairs, stacks, return_stages: bool = False, precomputed=None,
+                            n_real: int | None = None):
+        """One chunk of run_two_view; ``n_real``: its leading pairs that are
+        real (the rest repeat the last of them)."""
         fe = self.config.frontend
         tv = self.config.two_view
         dev = self.device
@@ -483,7 +490,8 @@ class SceneOptimizer:
                              else matching.mutual_nearest_matching)
                     idx, mm = match(d1, d2, m1, m2, ratio_test=fe.ratio_test)
                 else:
-                    idx, mm = self._deep_match(d1, d2, k1, k2, stack("response", 0), stack("response", 1), m1, m2)
+                    idx, mm = self._deep_match(d1, d2, k1, k2, stack("response", 0), stack("response", 1), m1, m2,
+                                               n_real=n_real)
                 x1, x2, cm = matching.matches_to_correspondences(idx, mm, k1, k2)
             self._span_peak("two_view/match")
 
@@ -770,7 +778,7 @@ class SceneOptimizer:
                 result = self._run_stages(loader, save_outputs)
             finally:
                 self.span_table = table.rows
-        result.trace = {"spans": table.rows}
+        result.trace = {"spans": table.rows, "counters": table.counters}
         return result
 
     def _run_stages(self, loader: LoaderBase, save_outputs: bool = True) -> ReconstructionResult:

@@ -158,9 +158,11 @@ def test_result_trace_holds_the_spans(scene):
     export span that ran (the two-view and feature stages are replaced
     here), translation averaging's recovery twice with one IRLS and one
     Gauss-Newton sub-span a call, and self seconds within host seconds; an
-    unprofiled run has no device counts."""
+    unprofiled run has no device counts, and a run without adaptive
+    LightGlue counts nothing."""
     trace = scene["port"].trace
-    assert set(trace) == {"spans"}
+    assert set(trace) == {"spans", "counters"}
+    assert trace["counters"] == {}
     spans = trace["spans"]
     expected = {"retrieval/pairs", "two_view/cache", "two_view/gt_reports", "back_end/viewgraph",
                 "back_end/viewgraph/gt_metrics", "back_end/rotation_averaging", "back_end/tracks",
